@@ -39,8 +39,18 @@ def format_value(v, dtype, dictionary=None) -> str:
     return str(int(v))
 
 
+def verify_checks(rel: Relation):
+    """Verify deferred runtime assertions still attached to a relation (the
+    executor clears the ones it has read) — at materialization, the first
+    point where a device -> host transfer happens anyway."""
+    for name, ok in getattr(rel, "checks", ()) or ():
+        if not bool(ok):
+            raise RuntimeError(f"runtime check failed: {name}")
+
+
 def materialize(rel: Relation, columns: list[str] | None = None):
     """-> (column_names, list of row tuples of python values, metas)."""
+    verify_checks(rel)
     names = columns or list(rel.columns.keys())
     mask = rel.mask.cpu().numpy()
     host = {}

@@ -2,8 +2,9 @@
 
 Counterpart of `duckdb_cubit_tpu/index/pk.py`: TPC-H keys are dense (or
 near-dense), so key -> row resolves through one int32 lookup tensor built
-once at ingest.  The loader builds these and `GroupAggregate.prepare` reads
-them; the join probe that uses them comes with the join slice.
+once at ingest.  PK-FK joins probe it (`HashJoin._pk_probe`) and fetch build
+values through per-column value luts in key space (`device_value_lut`),
+both through the monotone gather kernel when the probe keys are sorted.
 """
 
 from __future__ import annotations
@@ -17,6 +18,25 @@ class DirectPKIndex:
         self.column = column
         self.lut = lut          # (max_key+1,) int32 row id, -1 = absent
         self.max_key = max_key
+        # per-column VALUE luts in key space: vlut[slot] = column[lut[slot]]
+        # (0 where absent; callers mask by `found`).  Built once on the host
+        # and cached here: an index is rebuilt, never updated, so an entry
+        # cannot go stale.
+        self._value_luts: dict[str, torch.Tensor] = {}
+        self._lut_host: np.ndarray | None = None
+
+    def device_value_lut(self, name: str, host_col: np.ndarray) -> torch.Tensor:
+        """int32 value lut of a base column, on the index's device."""
+        v = self._value_luts.get(name)
+        if v is None:
+            if self._lut_host is None:
+                self._lut_host = self.lut.cpu().numpy()
+            lh = self._lut_host
+            vals = np.asarray(host_col)[np.maximum(lh, 0)].astype(np.int32)
+            vals[lh < 0] = 0
+            v = self._value_luts[name] = torch.as_tensor(
+                vals, device=self.lut.device)
+        return v
 
     @classmethod
     def build(cls, column: str, keys: np.ndarray, num_rows: int,
@@ -35,3 +55,14 @@ class DirectPKIndex:
         if (lut[keys] != np.arange(num_rows)).any():
             return None  # duplicate keys
         return cls(column, torch.as_tensor(lut, device=device), max_key)
+
+    def probe(self, probe_keys: torch.Tensor, probe_valid: torch.Tensor,
+              build_mask: torch.Tensor):
+        """-> (build row per probe row, found mask)."""
+        k = probe_keys.to(torch.int64)
+        in_range = (k >= 0) & (k <= self.max_key) & probe_valid
+        row = self.lut[torch.clamp(k, 0, self.max_key)]
+        present = row >= 0
+        alive = build_mask[torch.clamp(row, min=0)]
+        found = in_range & present & alive
+        return torch.where(found, row, torch.full_like(row, -1)), found

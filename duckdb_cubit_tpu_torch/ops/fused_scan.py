@@ -7,8 +7,8 @@ two, or of `(p & 0xFFFFFF) * ((p >> 24) & 0xFF)` for one column packed by
 `pack_columns`.  It has two bodies, chosen only by the tensors' device:
 
   - CUDA tensors launch the hand-written kernel in `csrc/fused_scan_sum.cu`
-    (built by nvcc for sm_90a at first use into `_build/`, bound through
-    ctypes), or raise;
+    (built by `cuda_build` with nvcc for sm_90a at first use, bound
+    through ctypes), or raise;
   - CPU tensors run `fused_scan_sum_reference`, the plain torch version.
 
 The TPU kernel's bit-plane word layout, hi/lo split sums and split search
@@ -21,32 +21,21 @@ payloads, product bound below 2**31), so the same queries take this path.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
 from . import bitmap as bm
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_scan_sum.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libfused_scan_sum.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from .cuda_build import CudaKernel
 
 MODE_SINGLE, MODE_PAIR, MODE_PACKED = 0, 1, 2
 
+KERNEL = CudaKernel(
+    "fused_scan_sum.cu", "fused_scan_sum_launch",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
 # launches of the CUDA kernel (never counts the plain body)
 launch_count = 0
-# nvcc's output of the last build (ptxas register / spill report)
-build_log = ""
-
-_lib = None
-_lock = threading.Lock()
 
 
 def pack_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,55 +43,6 @@ def pack_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (`a` low, `b` in the top byte): the scan then streams 4 B/row instead
     of 8."""
     return bm.wrap_int32(a.to(torch.int64) | (b.to(torch.int64) << 24))
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
-                           "build the fused scan-sum kernel")
-    return found
-
-
-def build() -> str:
-    """Compile the kernel (if the library is missing or older than its
-    source) and return the library path.  Raises if nvcc fails."""
-    global build_log
-    if os.path.exists(LIB_PATH) and \
-            os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE):
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return LIB_PATH
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.fused_scan_sum_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_void_p]
-            _lib = lib
-    return _lib
 
 
 def _check(words: torch.Tensor, payloads, packed: bool) -> int:
@@ -160,7 +100,7 @@ def fused_scan_sum(words: torch.Tensor, payloads: list,
         return fused_scan_sum_reference(words, payloads, packed)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    lib = _load()
+    launch = KERNEL.function()
     n = payloads[0].shape[0]
     out = torch.zeros((), dtype=torch.int64, device=words.device)
     a = payloads[0]
@@ -168,9 +108,8 @@ def fused_scan_sum(words: torch.Tensor, payloads: list,
     sms = torch.cuda.get_device_properties(words.device).multi_processor_count
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fused_scan_sum_launch(words.data_ptr(), a.data_ptr(),
-                                       b.data_ptr(), n, mode, out.data_ptr(),
-                                       sms, stream)
+        rc = launch(words.data_ptr(), a.data_ptr(), b.data_ptr(), n, mode,
+                    out.data_ptr(), sms, stream)
     if rc != 0:
         raise RuntimeError(f"fused_scan_sum launch failed: CUDA error {rc}")
     launch_count += 1

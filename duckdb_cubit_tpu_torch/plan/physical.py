@@ -3,13 +3,14 @@
 Counterpart of `duckdb_cubit_tpu/plan/physical.py`.  Every operator consumes
 and produces a `Relation` — named device tensors plus a validity mask — and
 keeps its input's capacity wherever it can, narrowing the mask instead of
-moving rows.  This module ports the operators of a single-table SELECT with
-an ungrouped aggregate: TableScan (CUBIT index words, the decode-vs-mask
-decision, row-id decode), Filter, Project, and GroupAggregate without keys,
-including the fused bitmap-scan + SUM path that runs the hand-written CUDA
-kernel (`ops/fused_scan.py`).  Operators that later slices port exist by
-name for the shared binder and optimizer, and raise NotImplementedError when
-constructed.
+moving rows.  Ported so far: TableScan (CUBIT index words, the decode-vs-mask
+decision, row-id decode), Filter, Project, GroupAggregate (ungrouped, with
+the fused bitmap-scan + SUM kernel of `ops/fused_scan.py`; dense mixed-radix,
+FK-dense and sort-based grouping), HashJoin's direct-address PK path (the
+probe and the build-value fetch through the monotone gather kernel of
+`ops/probe.py`), OrderBy and Limit.  Operators and join paths that later
+slices port exist by name for the shared binder and optimizer, and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,11 +23,13 @@ import torch
 
 from ..ops import bitmap as bm
 from ..ops import fused_scan as fs
+from ..ops import groupby as groupby_ops
 from ..ops import kernels
+from ..ops import probe as PPK
 from ..ops.expressions import (Arith, Col, ColMeta, EvalContext, Expr,
                                Typed, as_mask)
 from ..storage.table import Table, pad_count
-from ..types import DOUBLE, INT64, DataType, TypeId
+from ..types import BOOL, DOUBLE, INT64, DataType, TypeId
 
 
 @dataclasses.dataclass
@@ -81,8 +84,21 @@ class ExecContext:
     def __init__(self, catalog, config=None):
         self.catalog = catalog
         self.config = config
+        # deferred runtime assertions (name, 0-d bool tensor), read by the
+        # executor after the run
+        self.checks: list[tuple[str, object]] = []
+        # id(op) -> the op's position in plan.walk(), so a failed check
+        # names the operator the executor's retry flips
+        self.check_tags: dict[int, int] = {}
         # id(op) -> its output, so a subtree shared by two parents runs once
         self._cache: dict[int, Relation] = {}
+
+    def add_check(self, op, kind: str, ok):
+        """Attach a deferred runtime assertion.  `kind` in {"pkprobe",
+        "unique"} is recoverable: the executor flips the operator to its
+        plain path and runs the query again (exec/executor.py)."""
+        tag = self.check_tags.get(id(op), -1)
+        self.checks.append((f"{kind}#{tag}", ok))
 
 
 class PhysicalOperator:
@@ -112,6 +128,20 @@ class PhysicalOperator:
     def describe(self) -> str:
         return self.name
 
+    def prepare(self, ctx: ExecContext):
+        """Host-side decisions that depend on data (index words, decode
+        capacities, PK eligibility, kernel inputs), before execution."""
+        for c in self.children:
+            c.prepare(ctx)
+
+    def signature(self) -> str:
+        """Structural signature: the prepare cache's key."""
+        child_sigs = ",".join(c.signature() for c in self.children)
+        return f"{self._self_signature()}({child_sigs})"
+
+    def _self_signature(self) -> str:
+        return self.name
+
     def walk(self):
         yield self
         for c in self.children:
@@ -126,12 +156,9 @@ class _NotPorted(PhysicalOperator):
         raise NotImplementedError(f"{type(self).__name__}: not ported yet")
 
 
-class HashJoin(_NotPorted): name = "hash_join"
 class RangeJoin(_NotPorted): name = "range_join"
 class AsofJoin(_NotPorted): name = "asof_join"
 class MarkJoin(_NotPorted): name = "mark_join"
-class OrderBy(_NotPorted): name = "order_by"
-class Limit(_NotPorted): name = "limit"
 class BroadcastScalar(_NotPorted): name = "broadcast_scalar"
 class Window(_NotPorted): name = "window"
 class Materialized(_NotPorted): name = "materialized"
@@ -145,13 +172,21 @@ class WindowFunc:
 
 
 def static_base_table(op: PhysicalOperator) -> str | None:
-    """Which base table's row space an operator's output stays aligned to
-    (mask-preserving operators keep the base table's capacity and order)."""
+    """Which base table's row space an operator's output stays aligned to.
+
+    Mask-preserving operators (filters, projections, limits, semi/anti joins
+    and the probe side of single-match joins) keep the base table's capacity
+    and row order, which lets joins against them use direct-address PK
+    indexes."""
     if isinstance(op, TableScan):
         return None if getattr(op, "_decode_cap", None) is not None \
             else op.table_name
-    if isinstance(op, (Filter, Project)):
+    if isinstance(op, (Filter, Project, Limit)):
         return static_base_table(op.children[0])
+    if isinstance(op, HashJoin):
+        if op.join_type in ("semi", "anti") or (
+                op.single_match and not getattr(op, "_force_expand", False)):
+            return static_base_table(op.children[0])
     return None
 
 
@@ -298,6 +333,14 @@ class TableScan(PhysicalOperator):
                 c.monotone = mono[n]
         return rel
 
+    def _self_signature(self):
+        idx = ";".join(f"{c}:{k}:{a}" for c, k, a in self.index_filters)
+        decode = getattr(self, "_decode_cap", None)
+        ff = getattr(self, "always_false", False)
+        return (f"table_scan[{self.table_name};{self.projection};"
+                f"{[repr(f) for f in self.filters]};{idx};decode={decode};"
+                f"ff={ff}]")
+
     def describe(self):
         idx = f" index={[(c, k) for c, k, _ in self.index_filters]}" if self.index_filters else ""
         return f"table_scan({self.table_name}{idx}, filters={len(self.filters)})"
@@ -329,6 +372,9 @@ class Filter(PhysicalOperator):
     def _execute(self, ctx):
         rel = self.children[0].execute(ctx)
         return rel.with_mask(rel.mask & as_mask(rel.evaluate(self.expr)))
+
+    def _self_signature(self):
+        return f"filter[{self.expr!r}]"
 
 
 def _broadcast(value, capacity: int, device) -> torch.Tensor:
@@ -385,6 +431,218 @@ class Project(PhysicalOperator):
                                    domain=t.domain, valid=valid)
         return Relation(cols, rel.mask, rel.capacity)
 
+    def _self_signature(self):
+        return (f"project[{ {n: repr(e) for n, e in self.exprs.items()} };"
+                f"keep={self.keep_input}]")
+
+
+class HashJoin(PhysicalOperator):
+    """Equi-join.  This slice ports the direct-address PK-FK path: a
+    single-column key whose build side stays aligned to a base table with a
+    dense PK index.  `single_match=True` keeps the probe relation's shape
+    and gathers build columns through the matched row (no expansion, the
+    mask narrows on a miss).  Sorted probe keys go through the monotone
+    gather kernel (`ops/probe.py`), which also fetches build values from
+    key-space value luts.  The general hash build, the reverse-PK semi join
+    and the expansion path come with ROADMAP queue 1 item 9 and raise.
+
+    join_type: 'inner' | 'semi' | 'anti' | 'left' | 'full'
+    """
+
+    name = "hash_join"
+
+    def __init__(self, probe: PhysicalOperator, build: PhysicalOperator,
+                 probe_keys: Sequence[str], build_keys: Sequence[str],
+                 join_type: str = "inner", single_match: bool = True,
+                 out_capacity: int | None = None,
+                 build_prefix: str = "", found_column: str | None = None):
+        super().__init__([probe, build])
+        self.probe_keys = list(probe_keys)
+        self.build_keys = list(build_keys)
+        self.join_type = join_type
+        self.single_match = single_match
+        self.out_capacity = out_capacity
+        self.build_prefix = build_prefix
+        # left joins: expose the match flag as a named BOOL column (used by
+        # decorrelated EXISTS rewrites)
+        self.found_column = found_column
+        if join_type == "full" and found_column:
+            raise ValueError("found_column unsupported for FULL joins")
+
+    def is_pipeline_breaker(self):
+        return True
+
+    def blocking_children(self):
+        return [self.children[1]]
+
+    def prepare(self, ctx: ExecContext):
+        super().prepare(ctx)
+        # direct-address PK join eligibility: single-column key against a
+        # mask-aligned base-table relation that has a dense PK index
+        self._pk = None
+        self._reverse_pk = None
+        if len(self.build_keys) == 1:
+            base = static_base_table(self.children[1])
+            if base is not None:
+                table = ctx.catalog.table(base)
+                pk = table.pk_indexes.get(self.build_keys[0])
+                if pk is not None:
+                    self._pk = (base, self.build_keys[0], pk.max_key)
+                    self._vlut_cols = self._pick_vlut_cols(table)
+        if (self._pk is None and self.join_type in ("semi", "anti")
+                and len(self.probe_keys) == 1):
+            # reverse semi join: the PROBE side owns the PK
+            base = static_base_table(self.children[0])
+            if base is not None:
+                table = ctx.catalog.table(base)
+                pk = table.pk_indexes.get(self.probe_keys[0])
+                if pk is not None:
+                    self._reverse_pk = (base, self.probe_keys[0], pk.max_key)
+
+    def _pick_vlut_cols(self, table) -> list[str]:
+        """Build columns eligible for the kernel's value-lut fetch:
+        int-backed (<= int32 storage), no base NULLs, not the key itself (a
+        matched row's key IS the probe key)."""
+        out = []
+        for name, c in table.columns.items():
+            if name == self.build_keys[0] or c.nulls is not None:
+                continue
+            if c.data.dtype not in (torch.int8, torch.int16, torch.int32):
+                continue
+            out.append(name)
+        return out
+
+    def _pk_probe(self, ctx, probe_rel, build_rel):
+        """-> (build row or -1, found, the kernel's clipped int32 keys or
+        None when the plain lut path ran)."""
+        base, col, max_key = self._pk
+        pkidx = ctx.catalog.table(base).pk_indexes[col]
+        kcol = probe_rel.columns[self.probe_keys[0]]
+        if not self._kernel_probe_eligible(kcol, probe_rel, max_key,
+                                           build_rel):
+            row, found = pkidx.probe(kcol.array, probe_rel.mask,
+                                     build_rel.mask)
+            return row, found, None
+        # build-side liveness folds into the lut with one scatter, so the
+        # probe is a single kernel pass; an overflow (a key that breaks the
+        # sorted, in-range precondition) is a recoverable deferred check:
+        # the executor sets _no_kernel_probe and runs the query again
+        k = kcol.array.to(torch.int64)
+        in_range = (k >= 0) & (k <= max_key) & probe_rel.mask
+        bk = build_rel.columns[self.build_keys[0]].array.to(torch.int64)
+        tgt = torch.where(build_rel.mask, torch.clamp(bk, 0, max_key),
+                          torch.full_like(bk, max_key + 1))
+        alive_slots = torch.zeros(max_key + 2, dtype=torch.bool,
+                                  device=bk.device)
+        alive_slots[tgt] = True
+        lut_eff = torch.where(alive_slots[: max_key + 1], pkidx.lut,
+                              torch.full_like(pkidx.lut, -1))
+        kc = torch.clamp(k, 0, max_key).to(torch.int32)
+        row, ovf = PPK.monotone_gather(lut_eff, kc)
+        ctx.add_check(self, "pkprobe", ovf == 0)
+        found = in_range & (row >= 0)
+        return torch.where(found, row, torch.full_like(row, -1)), found, kc
+
+    def _kernel_probe_eligible(self, kcol, probe_rel, max_key,
+                               build_rel) -> bool:
+        """Host gate of the kernel probe: sorted base-aligned probe keys
+        (the array is the full storage column, so key density matches
+        storage density), no NULL keys, and the kernel's size gate."""
+        if getattr(self, "_no_kernel_probe", False):
+            return False
+        if not kcol.monotone or max_key + 1 >= 2**31:
+            return False
+        if kcol.valid is not None:
+            return False
+        if self.build_keys[0] not in build_rel.columns:
+            return False
+        return PPK.plan_monotone_gather(probe_rel.capacity, max_key + 1)
+
+    def _execute(self, ctx):
+        probe_rel = self.children[0].execute(ctx)
+        build_rel = self.children[1].execute(ctx)
+        if not hasattr(self, "_pk"):
+            self.prepare(ctx)
+        if self._pk is not None and (
+                self.single_match or self.join_type in ("semi", "anti")):
+            build_row, found, kc = self._pk_probe(ctx, probe_rel, build_rel)
+            if self.join_type in ("semi", "anti"):
+                m = ~found if self.join_type == "anti" else found
+                return probe_rel.with_mask(m & probe_rel.mask)
+            return self._gather_single(ctx, probe_rel, build_rel, build_row,
+                                       found, kc)
+        path = "reverse-PK semi join" if self._reverse_pk is not None \
+            else "hash build and expansion"
+        raise NotImplementedError(
+            f"HashJoin {path}: not ported yet (ROADMAP queue 1 item 9)")
+
+    def _gather_single(self, ctx, probe_rel, build_rel, build_row, found,
+                       kernel_keys):
+        safe = torch.clamp(build_row, 0, build_rel.capacity - 1)
+        left = self.join_type == "left"
+        cols = dict(probe_rel.columns)
+        vluts = {}
+        if kernel_keys is not None:
+            base, keycol, _ = self._pk
+            table = ctx.catalog.table(base)
+            pkidx = table.pk_indexes[keycol]
+            # only the luts this join reads: each is built once on the host
+            for n in self._vlut_cols:
+                if n in build_rel.columns:
+                    bc = table.columns[n]
+                    vluts[n] = pkidx.device_value_lut(
+                        n, bc.host if bc.host is not None
+                        else bc.data.cpu().numpy())
+        for n, c in build_rel.columns.items():
+            out_name = self.build_prefix + n
+            if out_name in cols:
+                continue
+            v = None if c.valid is None else c.valid[safe]
+            if left:
+                # unmatched probe rows see NULL build values
+                v = found if v is None else (v & found)
+            if kernel_keys is not None and c.valid is None and \
+                    n == self.build_keys[0]:
+                # a matched row's build key IS the probe key: no gather
+                cols[out_name] = RelColumn(kernel_keys.to(c.array.dtype),
+                                           c.dtype, c.dictionary, c.domain,
+                                           found if left else v)
+                continue
+            if kernel_keys is not None and n in vluts and c.valid is None:
+                # the build VALUE, fetched by the same kernel over the
+                # key-space value lut; garbage at unmatched slots is masked
+                # by `found` exactly like the row gather
+                val, ovf = PPK.monotone_gather(vluts[n], kernel_keys)
+                ctx.add_check(self, "pkprobe", ovf == 0)
+                cols[out_name] = RelColumn(val.to(c.array.dtype), c.dtype,
+                                           c.dictionary, c.domain,
+                                           found if left else None)
+                continue
+            cols[out_name] = RelColumn(c.array[safe], c.dtype, c.dictionary,
+                                       c.domain, v)
+        if left:
+            mask = probe_rel.mask
+            if self.found_column:
+                cols[self.found_column] = RelColumn(found, BOOL, None)
+        else:
+            mask = probe_rel.mask & found
+        return Relation(cols, mask, probe_rel.capacity)
+
+    def describe(self):
+        return (f"hash_join({self.join_type}, {self.probe_keys}={self.build_keys},"
+                f" single={self.single_match})")
+
+    def _self_signature(self):
+        # includes the kernel switch, so a retry after an overflow is a new
+        # prepare-cache entry and never the stale one
+        return (f"hash_join[{self.join_type};{self.probe_keys};{self.build_keys};"
+                f"{self.single_match};{self.out_capacity};{self.build_prefix};"
+                f"fc={self.found_column};"
+                f"pk={getattr(self, '_pk', None)};"
+                f"rpk={getattr(self, '_reverse_pk', None)};"
+                f"fe={getattr(self, '_force_expand', False)};"
+                f"nkp={getattr(self, '_no_kernel_probe', False)}]")
+
 
 @dataclasses.dataclass
 class Aggregate:
@@ -394,9 +652,14 @@ class Aggregate:
 
 
 class GroupAggregate(PhysicalOperator):
-    """Aggregation.  This slice ports the ungrouped single-row aggregate
-    (no keys), including the fused bitmap-scan + SUM kernel path; grouped
-    aggregation comes with the next slice and raises here."""
+    """Aggregation.
+
+    With no keys, the single-row aggregate, including the fused bitmap-scan
+    + SUM kernel path.  With keys: FK-dense grouping when the one key is a
+    foreign key with a direct PK index (group ids are the referenced rows),
+    the dense mixed-radix path when every key is a dictionary / CHAR1 /
+    small-int domain, and sort-based grouping otherwise.
+    """
 
     name = "group_aggregate"
 
@@ -406,26 +669,58 @@ class GroupAggregate(PhysicalOperator):
                  aggregates: Sequence[Aggregate],
                  carry: Sequence[str] = (),
                  dense_domain_limit: int = DEFAULT_DENSE_LIMIT):
-        # `carry` and `dense_domain_limit` only shape grouped aggregation
-        if keys:
-            raise NotImplementedError(
-                "GroupAggregate with GROUP BY keys: not ported yet")
         super().__init__([child])
+        self.keys = list(keys)
         self.aggregates = list(aggregates)
+        # columns functionally dependent on the keys, carried through the
+        # group via a representative row (c_name etc. in Q3/Q10/Q18)
+        self.carry = list(carry)
+        self.dense_domain_limit = dense_domain_limit
 
     def is_pipeline_breaker(self):
         return True
+
+    def _self_signature(self):
+        aggs = ";".join(f"{a.kind}:{a.name}:{a.expr!r}" for a in self.aggregates)
+        kernel = getattr(self, "_kernel", None)
+        return (f"group_aggregate[{self.keys};{self.carry};{aggs};"
+                f"fk={getattr(self, '_fk_dense', None)};"
+                f"kernel={None if kernel is None else kernel[1]}]")
+
+    def prepare(self, ctx: ExecContext):
+        super().prepare(ctx)
+        # FK-dense grouping: a single key that is a registered foreign key
+        # with a direct PK index groups straight into the referenced table's
+        # row space
+        self._fk_dense = None
+        if len(self.keys) == 1:
+            fk = ctx.catalog.foreign_keys.get(self.keys[0])
+            if fk is not None:
+                pk_table, pk_col = fk
+                table = ctx.catalog.table(pk_table)
+                pk = table.pk_indexes.get(pk_col)
+                if pk is not None:
+                    self._fk_dense = (pk_table, pk_col, pk.max_key,
+                                      table.capacity)
+        self._prepare_kernel(ctx)
 
     def _execute(self, ctx):
         fused = self._fused_scan_sum(ctx)
         if fused is not None:
             return fused
         rel = self.children[0].execute(ctx)
+        if not hasattr(self, "_fk_dense"):
+            self.prepare(ctx)
+        # unroll-vs-scatter strategy threshold (SET small_group_limit)
+        self._small = (ctx.config.small_group_limit
+                       if ctx.config is not None else kernels.SMALL_GROUP_LIMIT)
         evaluated: dict[str, Typed] = {}
         for agg in self.aggregates:
             if agg.expr is not None:
                 evaluated[agg.name] = rel.evaluate(agg.expr)
-        return self._ungrouped(rel, evaluated)
+        if not self.keys:
+            return self._ungrouped(rel, evaluated)
+        return self._grouped(ctx, rel, evaluated)
 
     def _fused_pattern(self, ctx):
         """Host-side check for the fused bitmap-scan + SUM pattern.
@@ -434,7 +729,7 @@ class GroupAggregate(PhysicalOperator):
         predicate answered by CUBIT bitvectors, mask-based, not provably
         empty).  Returns the host facts the fused paths need, or None.
         Value bounds come from zone maps."""
-        if len(self.aggregates) != 1:
+        if self.keys or len(self.aggregates) != 1:
             return None
         agg = self.aggregates[0]
         if agg.kind != "sum" or agg.expr is None:
@@ -486,9 +781,8 @@ class GroupAggregate(PhysicalOperator):
         """Prepare the fused-scan kernel instance (the reference's
         `_prepare_pallas`): widen narrowed payloads to int32 and, when the
         ranges allow, pack two columns into one int32 stream — once per
-        plan object.  `conn.sql` binds a new plan per query and the port has
-        no prepare cache yet (the reference's `Executor._prepare_cache`), so
-        each query repeats this work on the device.  Gated exactly as the
+        prepared plan: the executor's prepare cache hands the result to
+        every later plan with the same signature.  Gated exactly as the
         reference gates its kernel: SET use_pallas, non-negative payloads,
         product bound below 2**31, int32-representable columns, and the
         reference kernel plan's minimum capacity of 2**15 rows."""
@@ -552,6 +846,286 @@ class GroupAggregate(PhysicalOperator):
         # generic _ungrouped null_on_empty handling)
         return Relation(out, (cnt > 0).reshape(1), 1)
 
+    def _grouped(self, ctx, rel, evaluated):
+        """GROUP BY: FK-dense, dense mixed-radix or sort-based group ids,
+        then `_aggregate`."""
+        if self._fk_dense is not None:
+            pk_table, pk_col, max_key, num_groups = self._fk_dense
+            lut = ctx.catalog.table(pk_table).pk_indexes[pk_col].lut
+            key = rel.columns[self.keys[0]].array.to(torch.int64)
+            in_range = (key >= 0) & (key <= max_key)
+            gid = lut[torch.clamp(key, 0, max_key)]
+            valid = rel.mask & in_range & (gid >= 0)
+            gids = torch.clamp(gid, min=0).to(torch.int32)
+            if num_groups > self._small:
+                # the sorted path finds its own representative rows
+                rep = torch.zeros(num_groups, dtype=torch.int32,
+                                  device=gids.device)
+            else:
+                rows = torch.arange(rel.capacity, dtype=torch.int32,
+                                    device=gids.device)
+                slot = torch.where(valid, gids, torch.full_like(gids,
+                                                                num_groups))
+                rep = torch.full((num_groups + 1,), -1, dtype=torch.int32,
+                                 device=gids.device).scatter_reduce_(
+                    0, slot.to(torch.int64), rows, reduce="amax")[:num_groups]
+            out_cols, out_mask = self._aggregate(rel, evaluated, gids, valid,
+                                                 num_groups, rep)
+            return Relation(out_cols, out_mask, num_groups)
+        dense_sizes, dense_codes = self._dense_codes(rel)
+        dense_limit = self.dense_domain_limit
+        if (ctx.config is not None
+                and dense_limit == GroupAggregate.DEFAULT_DENSE_LIMIT):
+            dense_limit = ctx.config.dense_domain_limit
+        if dense_sizes is not None and int(np.prod(dense_sizes)) <= \
+                dense_limit and not self.carry:
+            gids, num_groups = groupby_ops.mixed_radix_codes(dense_codes,
+                                                             dense_sizes)
+            valid, rep = rel.mask, None
+        else:
+            # NULL keys form one group: a leading null-flag key per nullable
+            # column, with the value zeroed under NULL so garbage payloads
+            # do not split the group (SQL GROUP BY NULL-equality)
+            key_arrays = []
+            for k in self.keys:
+                c = rel.columns[k]
+                enc = kernels.monotone_i64(c.array)
+                if c.valid is not None:
+                    key_arrays.append((~c.valid).to(torch.int64))
+                    enc = torch.where(c.valid, enc, torch.zeros_like(enc))
+                key_arrays.append(enc)
+            gk = groupby_ops.group_by_sort(tuple(key_arrays), rel.mask,
+                                           rel.capacity)
+            gids, valid, num_groups, rep = (
+                gk.group_ids, gk.valid, rel.capacity, gk.rep_rows)
+        out_cols, out_mask = self._aggregate(rel, evaluated, gids, valid,
+                                             num_groups, rep)
+        return Relation(out_cols, out_mask, num_groups)
+
+    def _dense_codes(self, rel):
+        """Per-key codes in a small known domain, and the domain sizes, or
+        (None, None) when some key has none (or may be NULL: NULL is a group
+        of its own)."""
+        sizes, codes = [], []
+        device = rel.mask.device
+        for k in self.keys:
+            c = rel.columns[k]
+            if c.valid is not None:
+                return None, None
+            if c.dtype.id == TypeId.VARCHAR and c.dictionary is not None:
+                sizes.append(len(c.dictionary))
+                codes.append(c.array)
+            elif c.dtype.id == TypeId.CHAR1 and c.domain is not None:
+                # compact byte values to [0, |domain|) via a 256-entry lut
+                lut = np.zeros(256, np.int32)
+                lut[c.domain] = np.arange(len(c.domain), dtype=np.int32)
+                sizes.append(len(c.domain))
+                codes.append(torch.as_tensor(lut, device=device)[
+                    c.array.to(torch.int64)])
+            elif c.dtype.id == TypeId.CHAR1:
+                sizes.append(256)
+                codes.append(c.array)
+            elif c.dtype.id in (TypeId.INT32, TypeId.INT64, TypeId.DATE,
+                                TypeId.DECIMAL) and c.domain is not None:
+                # small int/date domains: perfect-hash grouping instead of
+                # a full sort
+                sizes.append(len(c.domain))
+                lo = int(c.domain[0])
+                if int(c.domain[-1]) - lo + 1 == len(c.domain):
+                    codes.append((c.array.to(torch.int64) - lo).to(
+                        torch.int32))
+                else:
+                    codes.append(torch.searchsorted(
+                        torch.as_tensor(c.domain, device=device),
+                        c.array.to(torch.int64)).to(torch.int32))
+            else:
+                return None, None
+        return sizes, codes
+
+    def _aggregate(self, rel, evaluated, gids, valid, num_groups, rep):
+        if num_groups > self._small:
+            # large group domains reduce in group-sorted order (sort +
+            # cumsum + boundary gathers) instead of scattering
+            return self._aggregate_sorted(rel, evaluated, gids, valid,
+                                          num_groups, rep)
+        counts = kernels.group_count(gids, valid, num_groups,
+                                     small_limit=self._small)
+        out_cols: dict[str, RelColumn] = {}
+        if rep is None:
+            out_cols.update(self._dense_key_columns(rel, num_groups))
+        else:
+            out_cols.update(self._rep_key_columns(rel, rep))
+        for agg in self.aggregates:
+            out_cols[agg.name] = self._one_agg(agg, rel, evaluated, gids,
+                                               valid, num_groups, counts)
+        return out_cols, counts > 0
+
+    def _rep_key_columns(self, rel, rep_rows):
+        """Key and carried columns read at one representative row per
+        group."""
+        safe_rep = torch.clamp(rep_rows, 0, rel.capacity - 1)
+        out_cols = {}
+        for k in list(self.keys) + list(self.carry):
+            c = rel.columns[k]
+            out_cols[k] = RelColumn(
+                c.array[safe_rep], c.dtype, c.dictionary,
+                valid=None if c.valid is None else c.valid[safe_rep])
+        return out_cols
+
+    def _aggregate_sorted(self, rel, evaluated, gids, valid, num_groups, rep):
+        gid_sorted, srows = kernels.sort_by_group(gids, valid)
+        start, end = kernels.segment_bounds(gid_sorted, num_groups)
+        counts = end - start
+        occupied = counts > 0
+        out_cols: dict[str, RelColumn] = {}
+        if rep is None and self.keys:
+            # dense-code grouping: keys rebuilt from code arithmetic
+            out_cols.update(self._dense_key_columns(rel, num_groups))
+        else:
+            safe_start = torch.clamp(start, max=gids.shape[0] - 1)
+            rep_rows = torch.where(occupied, srows[safe_start],
+                                   torch.zeros_like(start))
+            out_cols.update(self._rep_key_columns(rel, rep_rows))
+        for agg in self.aggregates:
+            out_cols[agg.name] = self._one_agg_sorted(
+                agg, rel, evaluated, gids, valid, num_groups, counts,
+                srows, start, end)
+        return out_cols, occupied
+
+    def _one_agg_sorted(self, agg, rel, evaluated, gids, valid, num_groups,
+                        counts, srows, start, end):
+        if agg.kind == "count" and agg.expr is None:
+            return RelColumn(counts, INT64, None)
+        t = evaluated[agg.name]
+        arr = _column(t.array, rel.capacity, valid.device)
+        avalid = valid if t.valid is None else (valid & t.valid)
+        v_sorted = arr[srows]
+        avalid_sorted = avalid[srows]
+        if t.valid is not None or agg.kind == "count":
+            nonnull = kernels.segment_count(avalid_sorted, start, end)
+            out_valid = None if t.valid is None else (nonnull > 0)
+        else:
+            nonnull, out_valid = counts, None
+        if agg.kind == "count":
+            return RelColumn(nonnull, INT64, None)
+        if agg.kind in ("sum", "avg") and t.dtype.id in (
+                TypeId.DECIMAL, TypeId.INT32, TypeId.INT64):
+            hi, lo = kernels.segment_sum_exact(
+                v_sorted.to(torch.int64), avalid_sorted, start, end)
+            return self._exact_sum_column(agg, t, hi, lo, nonnull, out_valid)
+        if agg.kind in ("sum", "avg", "sum_double"):
+            v = torch.where(avalid_sorted, v_sorted.to(torch.float64),
+                            torch.zeros((), dtype=torch.float64,
+                                        device=v_sorted.device))
+            if t.dtype.id == TypeId.DECIMAL:
+                v = v / (10.0 ** t.dtype.scale)
+            s = kernels._segment_sum_from_cumsum(torch.cumsum(v, 0), start,
+                                                 end)
+            if agg.kind == "avg":
+                s = s / torch.clamp(nonnull, min=1).to(torch.float64)
+            return RelColumn(s, DOUBLE, None, valid=out_valid)
+        if agg.kind in ("min", "max"):
+            # floats go through the monotone int64 encoding so the int64
+            # min/max machinery is exact; empty groups get the int64 extremes
+            want_max = agg.kind == "max"
+            r = kernels.segment_minmax(gids, kernels.monotone_i64(arr),
+                                       avalid, num_groups,
+                                       _I64_MIN if want_max else _I64_MAX,
+                                       want_max=want_max)
+            r = kernels.monotone_i64_inverse(r, arr.is_floating_point())
+            return RelColumn(r, t.dtype, t.dictionary, valid=out_valid)
+        raise ValueError(agg.kind)
+
+    def _dense_key_columns(self, rel, num_groups):
+        """Rebuild key values from dense mixed-radix codes (mirrors the size
+        and code scheme of `_dense_codes`)."""
+        out_cols: dict[str, RelColumn] = {}
+        sizes = []
+        for k in self.keys:
+            c = rel.columns[k]
+            if c.dtype.id == TypeId.VARCHAR:
+                sizes.append(len(c.dictionary))
+            elif c.domain is not None:
+                sizes.append(len(c.domain))
+            else:
+                sizes.append(256)
+        rem = torch.arange(num_groups, dtype=torch.int32,
+                           device=rel.mask.device)
+        for k, size in reversed(list(zip(self.keys, sizes))):
+            c = rel.columns[k]
+            kv = rem % size
+            rem = rem // size
+            if c.dtype.id == TypeId.VARCHAR:
+                pass
+            elif c.domain is not None:
+                kv = torch.as_tensor(c.domain, device=kv.device)[kv].to(
+                    c.array.dtype)
+            else:
+                kv = kv.to(torch.uint8)
+            out_cols[k] = RelColumn(kv, c.dtype, c.dictionary, c.domain)
+        return dict(reversed(list(out_cols.items())))
+
+    def _one_agg(self, agg, rel, evaluated, gids, valid, num_groups, counts):
+        if agg.kind == "count" and agg.expr is None:
+            return RelColumn(counts, INT64, None)
+        t = evaluated[agg.name]
+        arr = _column(t.array, rel.capacity, valid.device)
+        # NULL semantics: aggregates skip NULL inputs (count(expr) counts
+        # only non-NULL; sum/min/max/avg over an all-NULL group are NULL)
+        avalid = valid if t.valid is None else (valid & t.valid)
+        if t.valid is not None or agg.kind == "count":
+            nonnull = kernels.group_count(gids, avalid, num_groups,
+                                          small_limit=self._small)
+            out_valid = None if t.valid is None else (nonnull > 0)
+        else:
+            nonnull, out_valid = counts, None
+        if agg.kind == "count":
+            return RelColumn(nonnull, INT64, None)
+        if agg.kind in ("sum", "avg") and t.dtype.id in (
+                TypeId.DECIMAL, TypeId.INT32, TypeId.INT64):
+            hi, lo = kernels.group_sum_exact(
+                gids, arr.to(torch.int64), avalid, num_groups,
+                small_limit=self._small)
+            return self._exact_sum_column(agg, t, hi, lo, nonnull, out_valid)
+        if agg.kind in ("sum", "avg", "sum_double"):
+            v = torch.where(avalid, arr.to(torch.float64),
+                            torch.zeros((), dtype=torch.float64,
+                                        device=arr.device))
+            if t.dtype.id == TypeId.DECIMAL:
+                v = v / (10.0 ** t.dtype.scale)
+            safe = torch.where(avalid, gids, torch.zeros_like(gids))
+            s = torch.zeros(num_groups, dtype=torch.float64,
+                            device=arr.device).index_add_(
+                0, safe.to(torch.int64), v)
+            if agg.kind == "avg":
+                s = s / torch.clamp(nonnull, min=1).to(torch.float64)
+            return RelColumn(s, DOUBLE, None, valid=out_valid)
+        if agg.kind in ("min", "max"):
+            enc = kernels.monotone_i64(arr)
+            if agg.kind == "min":
+                r = kernels.group_min(gids, enc, avalid, num_groups, _I64_MAX,
+                                      small_limit=self._small)
+            else:
+                r = kernels.group_max(gids, enc, avalid, num_groups, _I64_MIN,
+                                      small_limit=self._small)
+            r = kernels.monotone_i64_inverse(r, arr.is_floating_point())
+            return RelColumn(r, t.dtype, t.dictionary, valid=out_valid)
+        raise ValueError(agg.kind)
+
+    @staticmethod
+    def _exact_sum_column(agg, t, hi, lo, nonnull, out_valid) -> RelColumn:
+        """A grouped exact sum (or its average) from its (hi, lo) halves."""
+        if agg.kind == "sum":
+            return RelColumn((hi << 32) + lo,
+                             DataType(TypeId.DECIMAL, t.dtype.scale)
+                             if t.dtype.id == TypeId.DECIMAL else INT64,
+                             None, valid=out_valid)
+        scale = 10.0 ** t.dtype.scale if t.dtype.id == TypeId.DECIMAL \
+            else 1.0
+        avg = (hi.to(torch.float64) * (2.0**32) + lo.to(torch.float64)) \
+            / torch.clamp(nonnull, min=1).to(torch.float64) / scale
+        return RelColumn(avg, DOUBLE, None, valid=out_valid)
+
     def _ungrouped(self, rel, evaluated):
         device = rel.mask.device
         out_cols = {}
@@ -613,3 +1187,80 @@ def _column(arr, capacity: int, device) -> torch.Tensor:
     if isinstance(arr, torch.Tensor) and arr.ndim == 1:
         return arr
     return _broadcast(arr, capacity, device)
+
+
+_I64_MIN = torch.iinfo(torch.int64).min
+_I64_MAX = torch.iinfo(torch.int64).max
+
+
+class OrderBy(PhysicalOperator):
+    """Sort + optional limit (a top-N when the limit is set).
+
+    Keys are total-order encoded: DOUBLEs through the sign-flip bijection
+    (`kernels.monotone_i64`), everything else as int64; DESC by bitwise NOT
+    (~a = -a-1 is a decreasing bijection on int64, with no overflow at
+    INT64_MIN).  NULLs and masked rows are ordered by a separate class
+    operand (0 = value, 1 = NULL, 2 = masked row; -1 for NULL under SET
+    default_null_order = 'nulls_first') instead of in-band sentinels, so
+    keys near the int64 extremes never collide with them.
+    """
+
+    name = "order_by"
+
+    def __init__(self, child: PhysicalOperator, keys: Sequence[tuple[str, bool]],
+                 limit: int | None = None):
+        super().__init__([child])
+        self.keys = list(keys)  # (column, descending)
+        self.limit = limit
+
+    def is_pipeline_breaker(self):
+        return True
+
+    def _execute(self, ctx):
+        rel = self.children[0].execute(ctx)
+        nulls_first = (ctx.config is not None and
+                       ctx.config.default_null_order == "nulls_first")
+        operands = []
+        for name, desc in self.keys:
+            c = rel.columns[name]
+            if c.dtype.id == TypeId.DOUBLE:
+                a = kernels.monotone_i64(c.array)
+            else:
+                a = c.array.to(torch.int64)
+            cls = torch.where(rel.mask, 0, 2).to(torch.int8)
+            if c.valid is not None:
+                cls = torch.where(rel.mask & ~c.valid,
+                                  -1 if nulls_first else 1, cls).to(torch.int8)
+                # NULLs are equal: the payload under a NULL (whatever the
+                # join gathered there) must not order them; the next key
+                # does.  The reference keeps the payload (ROADMAP queue 3)
+                a = torch.where(c.valid, a, torch.zeros_like(a))
+            operands += [cls, ~a if desc else a]
+        perm = kernels.lexsort(operands)
+        total = rel.mask.to(torch.int64).sum()
+        cap = rel.capacity if self.limit is None else min(
+            pad_count(self.limit), rel.capacity)
+        limit = total if self.limit is None else torch.clamp(total,
+                                                             max=self.limit)
+        valid = torch.arange(cap, device=perm.device) < limit
+        return rel.gather(perm[:cap], valid, cap)
+
+    def _self_signature(self):
+        return f"order_by[{self.keys};{self.limit}]"
+
+
+class Limit(PhysicalOperator):
+    name = "limit"
+
+    def __init__(self, child: PhysicalOperator, limit: int):
+        super().__init__([child])
+        self.limit = limit
+
+    def _execute(self, ctx):
+        rel = self.children[0].execute(ctx)
+        keep = rel.mask & (torch.cumsum(rel.mask.to(torch.int64), 0)
+                           <= self.limit)
+        return rel.with_mask(keep)
+
+    def _self_signature(self):
+        return f"limit[{self.limit}]"

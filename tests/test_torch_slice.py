@@ -153,12 +153,12 @@ def test_fused_path_without_decode(ref_conn, port_conns, monkeypatch,
 
 
 @pytest.mark.parametrize("sql,name", [
-    ("SELECT count(*) FROM lineitem, orders WHERE l_orderkey = o_orderkey",
-     "HashJoin"),
-    ("SELECT l_returnflag, count(*) FROM lineitem GROUP BY l_returnflag",
-     "GroupAggregate"),
-    ("SELECT l_orderkey FROM lineitem ORDER BY l_orderkey LIMIT 3",
-     "OrderBy"),
+    # a two-column key: no direct-address PK build side
+    ("SELECT count(*) FROM lineitem, partsupp "
+     "WHERE l_partkey = ps_partkey AND l_suppkey = ps_suppkey", "HashJoin"),
+    ("SELECT l_orderkey, row_number() OVER (ORDER BY l_orderkey) AS r "
+     "FROM lineitem", "WindowFunc"),
+    ("SELECT count(*) FROM lineitem WHERE l_comment LIKE '%foo%'", "Like"),
     ("CREATE TABLE t (a INTEGER)", "CreateTable"),
 ])
 def test_unported_parts_raise_by_name(port_conns, sql, name):
