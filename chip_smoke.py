@@ -1,5 +1,5 @@
 """GPU smoke run of the PyTorch + CUDA port: TPC-H Q6, Q1, Q12 and Q3 through
-the public API.
+the public API, then the reference's three benchmark entry points.
 
     python3 chip_smoke.py            # SF1 (6,001,215 lineitem rows)
     python3 chip_smoke.py --sf 10    # SF10
@@ -8,15 +8,22 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  Phases, each of which
 raises on failure (non-zero exit):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
-  2. build: both kernels from duckdb_cubit_tpu_torch/csrc/, one nvcc each,
-     started together: K1 the fused scan-sum, K2 the monotone gather;
+  2. build: all six kernels from duckdb_cubit_tpu_torch/csrc/, one nvcc
+     each, started together: K1 the fused scan-sum, K2 the monotone gather,
+     K3 / K4 the Q6 word- and mask-sums with int32 halves, K5a the table
+     gather and K5b the lane gather;
   3. kernel parity: each kernel against its plain torch version on the card,
      bit-exact.  K1 in every mode (single, pair, packed), ragged and aligned
      lengths, empty / full / sparse masks, int64 accumulation past 2**31.
      K2 on dense keys of variable multiplicity, absent slots, sparse keys,
      out-of-order and out-of-range keys (the overflow count must match),
      a length that is a multiple of no block size, and gather_via_sort on
-     random keys;
+     random keys.  K3 / K4 on a length that is a multiple of 32 but not of
+     1024, all-ones words, a wrapping low half, negative products and (K4)
+     every mask byte.  K5a on tables of 8192, 37 and 12288 entries, 1-D and
+     (N/128, 128) shapes, indices 0 and T-1, a ragged length and indices
+     out of range (the count must match); K5b on 64 and 3 table rows, row
+     counts that are and are not multiples of them, and bad lane indices;
   4. main path: connect(sf, device="cuda"), every table / index tensor on the
      card.  Q6 (and an off-bin-edge variant), Q1, Q12 and Q3 through
      conn.sql() against numpy oracles on the generated columns (Q6 also
@@ -28,7 +35,14 @@ raises on failure (non-zero exit):
   5. timing: each query end to end (median of warm runs), the device busy
      share of each from torch.profiler with its top device kernels, and
      each kernel alone against its plain version at the main path's shapes
-     with the L2 cache flushed.
+     with the L2 cache flushed;
+  6. entry points, each with every launch count set to 0 just before it
+     and read just after, on the catalog already loaded:
+     `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
+     K4 must launch), `benchmarks.gather_probe` (N = 2**22, T = 2**13; K5a
+     and K5b must launch) and `bench` (32 Q6 variants and the l_orderkey ->
+     orders probes; K1 and K2 must launch).  Each checks its own results
+     and prints its times.
 
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -46,6 +60,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from duckdb_cubit_tpu_torch.benchmarks.timing import (card_line,
+                                                      device_busy_share,
+                                                      flush_buffer,
+                                                      time_cold, turns)
 
 Q6 = """
     SELECT sum(l_extendedprice * l_discount) AS revenue
@@ -112,21 +131,23 @@ Q3 = """
 # TPC-H Q6 answers: SF1 is the specification's published answer; SF10 is the
 # reference package's result, checked there against a numpy oracle
 KNOWN_Q6 = {1.0: "123141078.2283", 10.0: "1230113636.0101"}
-REPLACES_K1 = "duckdb_cubit_tpu/ops/pallas_kernels.py:148"
-REPLACES_K2 = "duckdb_cubit_tpu/ops/pallas_probe.py:170"
+REPLACES = {
+    "fused_scan_sum": "duckdb_cubit_tpu/ops/pallas_kernels.py:148",
+    "monotone_gather": "duckdb_cubit_tpu/ops/pallas_probe.py:170",
+    "q6_words_i32": "benchmarks/q6bench.py:127 (pallas_q6, kernel q6_kernel "
+                    ":110)",
+    "q6_mask8_i32": "benchmarks/q6bench.py:168 (pallas_m8, kernel "
+                    "pallas_m8_kernel :154)",
+    "table_gather": "benchmarks/pallas_gather_probe.py:35 (try_kernel: kA "
+                    ":62, kA2 :77, kC :113)",
+    "lane_gather": "benchmarks/pallas_gather_probe.py:35 (try_kernel: kB "
+                   ":94)",
+}
 # relative tolerance of DOUBLE cells against the numpy oracle: the engine
 # and numpy sum floats in different orders
 DOUBLE_RTOL = 1e-9
-L2_FLUSH_BYTES = 256 << 20
 # warm runs behind each end-to-end and profiled time
 RUNS = 20
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def phase(name: str):
@@ -331,62 +352,36 @@ def k2_parity_cases():
     return [(label, lut, keys.astype(np.int32)) for label, lut, keys in cases]
 
 
-def device_busy_share(fn, iters: int) -> tuple[float, float, str]:
-    """(device kernel ms, wall ms, top kernels) over `iters` calls of `fn`,
-    from torch.profiler's CUDA activity."""
-    from torch.profiler import ProfilerActivity, profile
+def kernel_modules():
+    """kernel name -> (wrapper module, its CudaKernel, its count's name)."""
+    from duckdb_cubit_tpu_torch.ops import fused_scan as fs
+    from duckdb_cubit_tpu_torch.ops import gather_forms as gf
+    from duckdb_cubit_tpu_torch.ops import probe
+    from duckdb_cubit_tpu_torch.ops import q6_variants as qv
 
+    return {"fused_scan_sum": (fs, fs.KERNEL, "launch_count"),
+            "monotone_gather": (probe, probe.KERNEL, "launch_count"),
+            "q6_words_i32": (qv, qv.WORDS_KERNEL, "words_launch_count"),
+            "q6_mask8_i32": (qv, qv.MASK8_KERNEL, "mask8_launch_count"),
+            "table_gather": (gf, gf.TABLE_KERNEL, "table_launch_count"),
+            "lane_gather": (gf, gf.LANE_KERNEL, "lane_launch_count")}
+
+
+def reset_counts():
+    for module, _, count in kernel_modules().values():
+        setattr(module, count, 0)
+
+
+def read_counts() -> dict:
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    names = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / iters:.4f} ms"
-                      for e in top)
-    return device_ms / iters, wall_ms / iters, names
-
-
-def time_cold(fn, iters: int, flush: torch.Tensor) -> float:
-    """Median ms of `fn` with the L2 cache flushed before each call."""
-    times = []
-    for _ in range(iters):
-        flush.add_(1)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def time_warm(fn, iters: int) -> float:
-    """Mean ms of `fn` over back-to-back calls (inputs may sit in L2)."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return {name: getattr(module, count)
+            for name, (module, _, count) in kernel_modules().items()}
 
 
 def build_kernels():
-    """Both kernels, one nvcc each, started together."""
-    from duckdb_cubit_tpu_torch.ops import fused_scan as fs
-    from duckdb_cubit_tpu_torch.ops import probe
-
-    kernels = {"fused_scan_sum": fs.KERNEL, "monotone_gather": probe.KERNEL}
+    """Every kernel, one nvcc each, started together."""
+    kernels = {name: kernel for name, (_, kernel, _) in
+               kernel_modules().items()}
 
     def build(item):
         t0 = time.perf_counter()
@@ -462,17 +457,137 @@ def k2_parity(device) -> int:
     return max(max_err, err)
 
 
-def counted(conn, sql: str):
-    """Rows of one query, with each kernel's launch count set to 0 just
-    before it and read just after: -> (rows, K1 launches, K2 launches)."""
-    from duckdb_cubit_tpu_torch.ops import fused_scan as fs
-    from duckdb_cubit_tpu_torch.ops import probe
-
-    fs.launch_count = 0
-    probe.launch_count = 0
-    rows = conn.sql(sql).strings()
+def _pair_err(label: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    """Bit-exact check of two int32 [hi, lo] pairs; -> max |error|."""
     torch.cuda.synchronize()
-    return rows, fs.launch_count, probe.launch_count
+    g, w = got.cpu().tolist(), want.cpu().tolist()
+    err = max(abs(a - b) for a, b in zip(g, w))
+    print(f"  {label:52s} kernel={g} plain={w}")
+    if err:
+        raise AssertionError(f"{label}: kernel disagrees with plain")
+    return err
+
+
+def k3k4_parity(device) -> tuple[int, int]:
+    """K3 and K4 against their plain bodies: -> (K3 max err, K4 max err)."""
+    from duckdb_cubit_tpu_torch.ops import bitmap as bm
+    from duckdb_cubit_tpu_torch.ops import q6_variants as qv
+
+    rng = np.random.default_rng(3)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    cases = []
+    n = 32 * 733 * 3    # a multiple of 32, not of 1024
+    words = rng.integers(0, 2**32, n // 32, dtype=np.uint32).view(np.int32)
+    cases.append(("random words, Q6-like payloads", words,
+                  rng.integers(0, 10_500_000, n), rng.integers(0, 11, n)))
+    n = 1 << 20
+    ones = np.full(n // 32, -1, np.int32)
+    cases.append(("all-ones words, Q6-like payloads", ones,
+                  rng.integers(0, 10_500_000, n), rng.integers(0, 11, n)))
+    # prod & 0xFFFF near 65535 on 2**20 rows: the low half wraps 2**32
+    cases.append(("all-ones words, low half wraps", ones,
+                  rng.integers(60_000, 65_536, n), np.ones(n, np.int64)))
+    words = rng.integers(0, 2**32, n // 32, dtype=np.uint32).view(np.int32)
+    cases.append(("random words, negative and wrapping products", words,
+                  rng.integers(-2**31, 2**31, n), rng.integers(-2**31, 2**31,
+                                                               n)))
+    k3_err = k4_err = 0
+    for label, w, a, b in cases:
+        w, a, b = dev(w), dev(a.astype(np.int32)), dev(b.astype(np.int32))
+        k3_err = max(k3_err, _pair_err(
+            f"K3 {label}", qv.q6_words_i32(w, a, b),
+            qv.q6_words_i32_reference(w, a, b)))
+        m = bm.expand(w, a.shape[0]).to(torch.int8)
+        k4_err = max(k4_err, _pair_err(
+            f"K4 {label}", qv.q6_mask8_i32(m, a, b),
+            qv.q6_mask8_i32_reference(m, a, b)))
+    n = 1 << 20
+    m = dev(rng.integers(-128, 128, n).astype(np.int8))
+    a = dev(rng.integers(-2**31, 2**31, n).astype(np.int32))
+    b = dev(rng.integers(-2**31, 2**31, n).astype(np.int32))
+    k4_err = max(k4_err, _pair_err("K4 every mask byte in -128..127",
+                                   qv.q6_mask8_i32(m, a, b),
+                                   qv.q6_mask8_i32_reference(m, a, b)))
+    return k3_err, k4_err
+
+
+def _gather_err(label: str, got, want) -> int:
+    """Bit-exact check of two (out, bad) results; -> max |error|."""
+    (out, bad), (w_out, w_bad) = got, want
+    torch.cuda.synchronize()
+    err = max(int((out.to(torch.int64) - w_out).abs().max()),
+              abs(int(bad) - int(w_bad)))
+    print(f"  {label:52s} n={out.numel()} bad kernel={int(bad)} "
+          f"plain={int(w_bad)} max_err={err}")
+    if err:
+        raise AssertionError(f"{label}: kernel disagrees with plain")
+    return err
+
+
+def k5_parity(device) -> tuple[int, int]:
+    """K5a and K5b against their plain bodies: -> (K5a err, K5b err)."""
+    from duckdb_cubit_tpu_torch.ops import gather_forms as gf
+
+    rng = np.random.default_rng(4)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    k5a_err = 0
+    for t, n in ((8192, 1_000_003), (37, 70_001), (gf.MAX_TABLE, 1 << 22)):
+        tab = rng.integers(-2**31, 2**31, t).astype(np.int32)
+        idx = rng.integers(0, t, n).astype(np.int32)
+        idx[:2] = (0, t - 1)
+        idx[-2:] = (t - 1, 0)
+        k5a_err = max(k5a_err, _gather_err(
+            f"K5a T={t} 1-D", gf.table_gather(dev(tab), dev(idx)),
+            gf.table_gather_reference(dev(tab), dev(idx))))
+    tab2 = dev(rng.integers(-2**31, 2**31, (64, 128)).astype(np.int32))
+    idx2 = dev(rng.integers(0, 8192, (1 << 15, 128)).astype(np.int32))
+    k5a_err = max(k5a_err, _gather_err(
+        "K5a T=8192 (64, 128) table, (2**15, 128) indices",
+        gf.table_gather(tab2, idx2), gf.table_gather_reference(tab2, idx2)))
+    idx = rng.integers(0, 8192, 100_000).astype(np.int32)
+    idx[[5, 500, 99_999]] = (-1, 8192, -2**31)
+    got = gf.table_gather(tab2, dev(idx))
+    k5a_err = max(k5a_err, _gather_err(
+        "K5a three indices out of range", got,
+        gf.table_gather_reference(tab2, dev(idx))))
+    if int(got[1]) != 3:
+        raise AssertionError("K5a did not count the bad indices")
+
+    k5b_err = 0
+    for rows, r in ((64, 1 << 15), (64, 1001), (3, 1 << 12)):
+        tab = dev(rng.integers(-2**31, 2**31, (rows, 128)).astype(np.int32))
+        li = dev(rng.integers(0, 128, (r, 128)).astype(np.int32))
+        k5b_err = max(k5b_err, _gather_err(
+            f"K5b rows={rows} R={r}", gf.lane_gather(tab, li),
+            gf.lane_gather_reference(tab, li)))
+    li = rng.integers(0, 128, (999, 128)).astype(np.int32)
+    li[[0, 10, 998], [0, 127, 64]] = (128, -1, 1000)
+    got = gf.lane_gather(tab, dev(li))
+    k5b_err = max(k5b_err, _gather_err(
+        "K5b three lane indices out of range", got,
+        gf.lane_gather_reference(tab, dev(li))))
+    if int(got[1]) != 3:
+        raise AssertionError("K5b did not count the bad lane indices")
+    return k5a_err, k5b_err
+
+
+def counted(run, *must_launch):
+    """`run()` with every launch count set to 0 just before it and read just
+    after; raises unless each kernel named in `must_launch` launched.
+    -> (run's result, launches by kernel name)."""
+    reset_counts()
+    result = run()
+    counts = read_counts()
+    for name in must_launch:
+        if counts[name] < 1:
+            raise AssertionError(f"{name} did not launch: {counts}")
+    return result, counts
 
 
 def main_path_inputs(conn, sql: str) -> list:
@@ -513,7 +628,9 @@ def main() -> int:
     print("nvcc:", nvcc.strip().splitlines()[-1] if nvcc.strip() else "?")
     device = torch.device("cuda")
 
+    from duckdb_cubit_tpu_torch import bench
     from duckdb_cubit_tpu_torch.api import connect
+    from duckdb_cubit_tpu_torch.benchmarks import gather_probe, q6bench
     from duckdb_cubit_tpu_torch.ops import fused_scan as fs
     from duckdb_cubit_tpu_torch.ops import probe
 
@@ -521,8 +638,10 @@ def main() -> int:
     build_kernels()
 
     phase("kernel parity (bit-exact)")
-    k1_err = k1_parity(device)
-    k2_err = k2_parity(device)
+    err = {"fused_scan_sum": k1_parity(device),
+           "monotone_gather": k2_parity(device)}
+    err["q6_words_i32"], err["q6_mask8_i32"] = k3k4_parity(device)
+    err["table_gather"], err["lane_gather"] = k5_parity(device)
 
     phase(f"main path: connect(sf={args.sf:g}, device='cuda')")
     t0 = time.perf_counter()
@@ -542,16 +661,17 @@ def main() -> int:
           f"orders rows {orders.num_rows}, PK lut "
           f"{orders.pk_indexes['o_orderkey'].lut.shape[0]} slots")
 
-    rows, k1_launches, _ = counted(conn, Q6)
+    launches = {}
+    rows, counts = counted(lambda: conn.sql(Q6).strings(), "fused_scan_sum")
+    launches["fused_scan_sum"] = counts["fused_scan_sum"]
     expect = oracle_q6(lineitem, "1994-01-01", 2400)
-    print(f"Q6 = {rows}, numpy oracle = {expect}, K1 launches = {k1_launches}")
+    print(f"Q6 = {rows}, numpy oracle = {expect}, K1 launches = "
+          f"{launches['fused_scan_sum']}")
     if rows != [[expect]]:
         raise AssertionError("Q6 disagrees with the numpy oracle")
     known = KNOWN_Q6.get(args.sf)
     if known is not None and expect != known:
         raise AssertionError(f"Q6 {expect} != known answer {known}")
-    if k1_launches < 1:
-        raise AssertionError("Q6 did not launch the fused scan-sum kernel")
     rows2 = conn.sql(Q6_OFF_EDGE).strings()
     expect2 = oracle_q6(lineitem, "1994-01-10", 2350)
     print(f"Q6 off-edge = {rows2}, numpy oracle = {expect2}")
@@ -563,30 +683,27 @@ def main() -> int:
                "Q3": lambda: oracle_q3(cat.table("customer"), orders,
                                        lineitem)}
     least_k2 = {"Q1": 0, "Q12": 2, "Q3": 1}
-    k2_launches = 0
+    launches["monotone_gather"] = 0
     for name, sql in (("Q1", Q1), ("Q12", Q12), ("Q3", Q3)):
         print(conn.explain(sql))
-        rows, _, launches = counted(conn, sql)
+        rows, counts = counted(lambda: conn.sql(sql).strings())
+        k2_launches = counts["monotone_gather"]
         want = oracles[name]()
-        print(f"{name}: {len(rows)} rows, K2 launches = {launches}")
+        print(f"{name}: {len(rows)} rows, K2 launches = {k2_launches}")
         for row in rows[:4]:
             print("   ", row)
         if not rows_agree(rows, want):
             raise AssertionError(f"{name} disagrees with the numpy oracle: "
                                  f"{rows} vs {want}")
-        if launches < least_k2[name]:
-            raise AssertionError(f"{name} launched K2 {launches} times, "
+        if k2_launches < least_k2[name]:
+            raise AssertionError(f"{name} launched K2 {k2_launches} times, "
                                  f"expected at least {least_k2[name]}")
-        k2_launches += launches
-    print(f"Q1, Q12, Q3 equal their numpy oracles; K2 launches {k2_launches}")
+        launches["monotone_gather"] += k2_launches
+    print(f"Q1, Q12, Q3 equal their numpy oracles; K2 launches "
+          f"{launches['monotone_gather']}")
 
     # each kernel on the main path's own inputs, against its plain version
-    plan = conn.binder.bind_sql(Q6)
-    conn.executor.execute(plan)
-    agg = next(op for op in conn.executor.plan.walk()
-               if type(op).__name__ == "GroupAggregate")
-    words = agg.children[0]._words
-    payloads, packed = agg._kernel
+    words, payloads, packed = bench.q6_kernel_inputs(conn)
     if int(fs.fused_scan_sum(words, payloads, packed)) != \
             int(fs.fused_scan_sum_reference(words, payloads, packed)):
         raise AssertionError("K1 disagrees with plain on Q6's inputs")
@@ -596,7 +713,8 @@ def main() -> int:
     for i, (lut, keys) in enumerate(q12_calls):
         label = "Q12 probe (l_orderkey)" if i == 0 \
             else f"Q12 value fetch {i}"
-        k2_err = max(k2_err, k2_compare(label, lut, keys)[0])
+        err["monotone_gather"] = max(err["monotone_gather"],
+                                     k2_compare(label, lut, keys)[0])
 
     phase("timing")
     print("card:", card)
@@ -619,26 +737,13 @@ def main() -> int:
               f"{dev_ms / wall_ms:.4f}  [{card}]")
         print(f"  top device kernels per query: {top}")
 
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
-
-    def turns(kernel, plain):
-        """plain, kernel, kernel, plain: -> (kernel ms, plain ms), the
-        better of each pair, L2 flushed."""
-        timings = {}
-        for name, fn in (("plain", plain), ("kernel", kernel),
-                         ("kernel2", kernel), ("plain2", plain)):
-            timings[name] = (time_cold(fn, 30, flush), time_warm(fn, 50))
-        for name, (cold, warm) in timings.items():
-            print(f"  {name:8s} cold (L2 flushed, device time) {cold:.4f} ms"
-                  f"   back to back (host launch included) {warm:.4f} ms  "
-                  f"[{card}]")
-        return (min(timings["kernel"][0], timings["kernel2"][0]),
-                min(timings["plain"][0], timings["plain2"][0]))
-
+    flush = flush_buffer(device)
+    times = {}
     print("K1 at Q6's inputs:")
-    k1_ms, k1_plain_ms = turns(
+    times["fused_scan_sum"] = k1_ms, k1_plain_ms = turns(
         lambda: fs.fused_scan_sum(words, payloads, packed),
-        lambda: fs.fused_scan_sum_reference(words, payloads, packed))
+        lambda: fs.fused_scan_sum_reference(words, payloads, packed),
+        flush, card)
     n = payloads[0].shape[0]
     nominal = n * (4 + 0.125 if packed else 4 * len(payloads) + 0.125)
     print(f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms at n={n} "
@@ -647,24 +752,43 @@ def main() -> int:
     lut, keys = q12_calls[0]
     print(f"K2 at Q12's probe inputs (keys {keys.shape[0]}, lut "
           f"{lut.shape[0]} slots):")
-    k2_ms, k2_plain_ms = turns(
+    times["monotone_gather"] = k2_ms, k2_plain_ms = turns(
         lambda: probe.monotone_gather(lut, keys),
-        lambda: probe.monotone_gather_reference(lut, keys))
+        lambda: probe.monotone_gather_reference(lut, keys), flush, card)
     bare_ms = time_cold(lambda: lut[keys.to(torch.int64)], 30, flush)
     print(f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms (bare lut[keys] "
           f"gather {bare_ms:.4f} ms) at n={keys.shape[0]} (L2 flushed); "
           f"{keys.shape[0] * 12 / k2_ms / 1e6:.1f} GB/s of 12 B/key nominal "
           f"traffic  [{card}]")
+    del flush
+
+    phase("entry point: benchmarks.q6bench")
+    summary, counts = counted(lambda: q6bench.run(cat, device),
+                              "q6_words_i32", "q6_mask8_i32")
+    print(json.dumps(summary))
+    for name in ("q6_words_i32", "q6_mask8_i32"):
+        launches[name] = counts[name]
+        times[name] = summary["kernels"][name]
+    phase("entry point: benchmarks.gather_probe")
+    summary, counts = counted(lambda: gather_probe.run(device),
+                              "table_gather", "lane_gather")
+    print(json.dumps(summary))
+    for name in ("table_gather", "lane_gather"):
+        launches[name] = counts[name]
+        times[name] = summary["kernels"][name]
+    phase("entry point: bench")
+    line, counts = counted(lambda: bench.run(cat, device, args.sf),
+                           "fused_scan_sum", "monotone_gather")
+    print(json.dumps(line))
+    print(f"bench launches: K1 {counts['fused_scan_sum']}, K2 "
+          f"{counts['monotone_gather']}")
 
     print(json.dumps({"kernels": [
-        {"name": "fused_scan_sum", "route": "cuda",
-         "source": "duckdb_cubit_tpu_torch/csrc/fused_scan_sum.cu",
-         "replaces": REPLACES_K1, "launches": k1_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "monotone_gather", "route": "cuda",
-         "source": "duckdb_cubit_tpu_torch/csrc/monotone_gather.cu",
-         "replaces": REPLACES_K2, "launches": k2_launches,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+        {"name": name, "route": "cuda",
+         "source": f"duckdb_cubit_tpu_torch/csrc/{name}.cu",
+         "replaces": REPLACES[name], "launches": launches[name],
+         "max_abs_err": err[name], "ms": times[name][0],
+         "plain_ms": times[name][1]} for name in REPLACES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -86,3 +88,17 @@ class CudaKernel:
                 fn.argtypes = self.argtypes
                 self._fn = fn
         return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the launcher with `args` and the current stream of `device`
+        (its last argument); raise if the launch was refused."""
+        fn = self.function()
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's multiprocessor count (launchers size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from . import bitmap as bm
-from .cuda_build import CudaKernel
+from .cuda_build import CudaKernel, sm_count
 
 MODE_SINGLE, MODE_PAIR, MODE_PACKED = 0, 1, 2
 
@@ -100,17 +100,11 @@ def fused_scan_sum(words: torch.Tensor, payloads: list,
         return fused_scan_sum_reference(words, payloads, packed)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    launch = KERNEL.function()
     n = payloads[0].shape[0]
     out = torch.zeros((), dtype=torch.int64, device=words.device)
     a = payloads[0]
     b = payloads[1] if mode == MODE_PAIR else payloads[0]
-    sms = torch.cuda.get_device_properties(words.device).multi_processor_count
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(words.data_ptr(), a.data_ptr(), b.data_ptr(), n, mode,
-                    out.data_ptr(), sms, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_scan_sum launch failed: CUDA error {rc}")
+    KERNEL.launch(words.device, words.data_ptr(), a.data_ptr(), b.data_ptr(),
+                  n, mode, out.data_ptr(), sm_count(words.device))
     launch_count += 1
     return out

@@ -83,13 +83,8 @@ def monotone_gather(lut: torch.Tensor, keys: torch.Tensor):
     n = keys.shape[0]
     if n == 0:
         return out, overflow
-    launch = KERNEL.function()
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(lut.data_ptr(), lut.shape[0], keys.data_ptr(), n,
-                    out.data_ptr(), overflow.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"monotone_gather launch failed: CUDA error {rc}")
+    KERNEL.launch(keys.device, lut.data_ptr(), lut.shape[0], keys.data_ptr(),
+                  n, out.data_ptr(), overflow.data_ptr())
     launch_count += 1
     return out, overflow
 

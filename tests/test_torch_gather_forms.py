@@ -1,0 +1,164 @@
+"""Kernels K5a and K5b (gathers from a small table) of the torch port against
+the four Pallas bodies of `benchmarks/pallas_gather_probe.py`.
+
+The script's `main()` is taken out of its source with `ast` (importing the
+script would switch jax to 64-bit mode for the whole process) and run with
+N = 2**17, T = 2**13 and BLK = 2**14, with `try_kernel` replaced by one that
+calls `pl.pallas_call` with the same arguments in interpret mode on the CPU
+and keeps each output.  So `kA`, `kA2`, `kB` and `kC` run with the script's
+own inputs (numpy `default_rng(0)`) and BlockSpecs.  The port's plain bodies
+must equal them exactly (int32, tolerance 0), with no index counted bad.
+The CUDA cases hold the hand-written kernels against the plain bodies on
+the card and skip where there is none.
+"""
+
+import ast
+import functools
+import os
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from duckdb_cubit_tpu_torch.benchmarks import gather_probe
+from duckdb_cubit_tpu_torch.ops import gather_forms as gf
+
+SCRIPT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "benchmarks", "pallas_gather_probe.py")
+N, T, BLK = 1 << 17, 1 << 13, 1 << 14
+
+
+@functools.lru_cache(maxsize=None)
+def _script_run() -> dict:
+    """name -> (output, input arrays) of each Pallas form of main()."""
+    with open(SCRIPT) as f:
+        tree = ast.parse(f.read())
+    main = next(node for node in tree.body
+                if isinstance(node, ast.FunctionDef) and node.name == "main")
+    results = {}
+
+    def try_kernel(name, kernel, out_shape, grid, in_specs, out_specs, args,
+                   rows_per_call):
+        f = pl.pallas_call(kernel, out_shape=out_shape, grid=grid,
+                           in_specs=in_specs, out_specs=out_specs,
+                           interpret=True)
+        results[name] = (np.array(f(*args)),
+                         tuple(np.array(a) for a in args))
+
+    namespace = {"jax": jax, "jnp": jnp, "np": np, "pl": pl, "time": time,
+                 "N": N, "T": T, "BLK": BLK, "try_kernel": try_kernel,
+                 "_log": lambda m: None}
+    exec(compile(ast.Module(body=[main], type_ignores=[]), SCRIPT, "exec"),
+         namespace)
+    namespace["main"]()
+    return results
+
+
+FORMS = {"A_take_1d_vmem": "kA", "A2_take_2d_vmem": "kA2",
+         "C_onehot_where_sum": "kC"}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS), ids=FORMS.get)
+def test_table_gather_plain_body_equals_pallas_form(form):
+    want, (idx, tab) = _script_run()[form]
+    out, bad = gf.table_gather(torch.as_tensor(tab), torch.as_tensor(idx))
+    assert int(bad) == 0 and out.shape == want.shape
+    np.testing.assert_array_equal(out.numpy(), want)
+    np.testing.assert_array_equal(out.numpy().reshape(-1),
+                                  tab.reshape(-1)[idx.reshape(-1)])
+
+
+def test_lane_gather_plain_body_equals_pallas_kB():
+    want, (li2, tab2) = _script_run()["B_take_along_lanes"]
+    out, bad = gf.lane_gather(torch.as_tensor(tab2), torch.as_tensor(li2))
+    assert int(bad) == 0
+    np.testing.assert_array_equal(out.numpy(), want)
+    rows = np.arange(li2.shape[0]) % tab2.shape[0]
+    np.testing.assert_array_equal(want, tab2[rows[:, None], li2])
+
+
+def test_driver_inputs_are_the_scripts():
+    """gather_probe.inputs draws what the script's main() draws."""
+    idx, table, li2 = gather_probe.inputs(N, T, "cpu")
+    _, (s_idx, s_tab) = _script_run()["A_take_1d_vmem"]
+    _, (s_li2, _) = _script_run()["B_take_along_lanes"]
+    np.testing.assert_array_equal(idx.numpy(), s_idx)
+    np.testing.assert_array_equal(table.numpy(), s_tab)
+    np.testing.assert_array_equal(li2.numpy(), s_li2)
+
+
+@pytest.mark.parametrize("fn", ["table", "lane"])
+def test_bad_indices_are_counted_never_read(fn):
+    rng = np.random.default_rng(3)
+    tab2 = torch.as_tensor(rng.integers(0, 1 << 30, (64, 128))
+                           .astype(np.int32))
+    if fn == "table":
+        idx = rng.integers(0, 8192, 1000).astype(np.int32)
+        idx[[0, 7, 999]] = (-1, 8192, 2**31 - 1)
+        out, bad = gf.table_gather(tab2, torch.as_tensor(idx))
+        ok = (idx >= 0) & (idx < 8192)
+        want = tab2.numpy().reshape(-1)[np.where(ok, idx, 0)]
+    else:
+        idx = rng.integers(0, 128, (100, 128)).astype(np.int32)
+        idx[[0, 50, 99], [0, 1, 127]] = (-5, 128, 200)
+        out, bad = gf.lane_gather(tab2, torch.as_tensor(idx))
+        ok = (idx >= 0) & (idx < 128)
+        rows = np.arange(100)[:, None] % 64
+        want = tab2.numpy()[rows, np.where(ok, idx, 0)]
+    assert int(bad) == 3
+    np.testing.assert_array_equal(out.numpy(), np.where(ok, want, 0))
+
+
+@pytest.mark.parametrize("bad", ["table-too-big", "empty-table", "dtype",
+                                 "lane-width", "noncontiguous"])
+def test_wrappers_reject_what_the_kernels_do_not_take(bad):
+    tab = torch.zeros(gf.MAX_TABLE + 1, dtype=torch.int32)
+    idx = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "table-too-big":
+            gf.table_gather(tab, idx)
+        elif bad == "empty-table":
+            gf.table_gather(tab[:0], idx)
+        elif bad == "dtype":
+            gf.table_gather(tab[:128], idx.to(torch.int64))
+        elif bad == "lane-width":
+            gf.lane_gather(tab[:128].reshape(2, 64), idx.reshape(4, 64))
+        else:
+            gf.lane_gather(tab[:256].reshape(2, 128),
+                           idx.reshape(2, 128).t())
+
+
+def test_wrappers_on_cpu_run_plain_bodies_and_count_no_launch():
+    idx, table, li2 = gather_probe.inputs(1 << 12, T, "cpu")
+    before = (gf.table_launch_count, gf.lane_launch_count)
+    gf.table_gather(table, idx)
+    gf.lane_gather(table.reshape(-1, 128), li2)
+    assert (gf.table_launch_count, gf.lane_launch_count) == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [T, 37, gf.MAX_TABLE])
+def test_cuda_kernels_match_plain_bodies(cuda_device, t):
+    idx, table, li2 = gather_probe.inputs(N + 128 * 3, t, cuda_device)
+    before = (gf.table_launch_count, gf.lane_launch_count)
+    got_a = gf.table_gather(table, idx)
+    tab2 = table[: t // 128 * 128].reshape(-1, 128) if t >= 128 else \
+        table.repeat(128)[:128].reshape(1, 128)
+    got_b = gf.lane_gather(tab2, li2)
+    torch.cuda.synchronize()
+    assert (gf.table_launch_count, gf.lane_launch_count) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in ((got_a, gf.table_gather_reference(table, idx)),
+                      (got_b, gf.lane_gather_reference(tab2, li2))):
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
