@@ -14,28 +14,39 @@ raises on failure (non-zero exit):
      gather and K5b the lane gather;
   3. kernel parity: each kernel against its plain torch version on the card,
      bit-exact.  K1 in every mode (single, pair, packed), ragged and aligned
-     lengths, empty / full / sparse masks, int64 accumulation past 2**31.
-     K2 on dense keys of variable multiplicity, absent slots, sparse keys,
-     out-of-order and out-of-range keys (the overflow count must match),
-     a length that is a multiple of no block size, and gather_via_sort on
-     random keys.  K3 / K4 on a length that is a multiple of 32 but not of
-     1024, all-ones words, a wrapping low half, negative products and (K4)
-     every mask byte.  K5a on tables of 8192, 37 and 12288 entries, 1-D and
-     (N/128, 128) shapes, indices 0 and T-1, a ragged length and indices
-     out of range (the count must match); K5b on 64 and 3 table rows, row
-     counts that are and are not multiples of them, and bad lane indices;
+     lengths, empty / full / sparse masks, int64 accumulation past 2**31,
+     and 32-word tiles all zero, all ones and sparse in turn with word
+     counts that are not a multiple of the tile.  K2 on dense keys of
+     variable multiplicity, absent slots, sparse keys, out-of-order and
+     out-of-range keys (the overflow count must match), a length that is a
+     multiple of no block size; over 1, 2, 4, 8 and 9 luts at once; on
+     views that start 4, 8 and 12 B past a 16-B boundary and lengths 1, 3,
+     5, 127, 129; on keys broken where a warp's span starts, at a quad
+     boundary and inside a quad (the count must be 3); and gather_via_sort
+     on random keys.  K3 / K4 on a length that is a multiple of 32 but not
+     of 1024, all-ones words, a wrapping low half, negative products and
+     (K4) every mask byte.  K5a on tables of 8192, 37 and 12288 entries,
+     1-D and (N/128, 128) shapes, indices 0 and T-1, a ragged length and
+     indices out of range (the count must match); K5b on 64 and 3 table
+     rows, row counts that are and are not multiples of them, and bad lane
+     indices;
   4. main path: connect(sf, device="cuda"), every table / index tensor on the
      card.  Q6 (and an off-bin-edge variant), Q1, Q12 and Q3 through
      conn.sql() against numpy oracles on the generated columns (Q6 also
      against its known answer).  Each query runs with the launch counts set
-     to 0 just before it and read just after: K1 must launch in Q6, K2 at
-     least twice in Q12 (the probe and the o_orderpriority value fetch) and
-     at least once in Q3.  Each kernel is then compared with its plain
-     version on the inputs the main path gave it;
+     to 0 just before it and read just after: K1 must launch in Q6; K2
+     exactly once in Q12 (the probe with the o_orderpriority value lut: 2
+     luts) and once in Q3 (the lineitem -> orders join: the row lut and 3
+     value luts).  Each kernel is then compared with its plain version on
+     the inputs the main path gave it;
   5. timing: each query end to end (median of warm runs), the device busy
-     share of each from torch.profiler with its top device kernels, and
-     each kernel alone against its plain version at the main path's shapes
-     with the L2 cache flushed;
+     share of each from torch.profiler with its top device kernels, the
+     device time of the PK probe's prelude beside K2's, and each kernel
+     alone against its plain version at the main path's shapes with the L2
+     cache flushed, beside its bound (the bytes it must move at 3.35 TB/s)
+     and the one PyTorch call that computes the same function, where there
+     is one; K2's 2- and 4-lut passes against the one-lut launches they
+     replaced;
   6. entry points, each with every launch count set to 0 just before it
      and read just after, on the catalog already loaded:
      `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
@@ -61,8 +72,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from duckdb_cubit_tpu_torch.benchmarks.timing import (card_line,
+from duckdb_cubit_tpu_torch.benchmarks.timing import (bound_ms, card_line,
                                                       device_busy_share,
+                                                      device_kernel_times,
                                                       flush_buffer,
                                                       time_cold, turns)
 
@@ -200,6 +212,23 @@ def k1_parity_cases(device):
     cases += [(f"pair n=2^24 near-2^31 products", words, [ta, tb], False),
               (f"packed n=2^24 near-2^31 products", words,
                [fs.pack_columns(ta, tb)], True)]
+    # the kernel's 32-word tiles all zero, all ones and 3% in turn; word
+    # counts that are not a multiple of the tile, rows not of 32
+    for n in (1, 31, 32 * 33 + 5, 1024 * 7 + 999, (1 << 20) + 1024 * 5 + 17):
+        mask = rng.random(n) < 0.03
+        for t in range(0, n, 1024):
+            if (t // 1024) % 3 < 2:
+                mask[t:t + 1024] = (t // 1024) % 3 == 1
+        a = rng.integers(0, 2**24, n).astype(np.int32)
+        b = rng.integers(0, 256, n).astype(np.int32)
+        words = bm.pack_mask(torch.as_tensor(mask, device=device),
+                             bm.num_words(n))
+        ta = torch.as_tensor(a, device=device)
+        tb = torch.as_tensor(b, device=device)
+        cases += [(f"single n={n} tile edges", words, [ta], False),
+                  (f"pair n={n} tile edges", words, [ta, tb], False),
+                  (f"packed n={n} tile edges", words,
+                   [fs.pack_columns(ta, tb)], True)]
     return cases
 
 
@@ -412,45 +441,81 @@ def k1_parity(device) -> int:
     return max_err
 
 
-def k2_compare(label: str, lut: torch.Tensor, keys: torch.Tensor):
-    """K2 against its plain body on one input, bit-exact; -> (max |error|,
-    the kernel's overflow count)."""
+def k2_compare(label: str, luts: list, keys: torch.Tensor):
+    """K2 against its plain body on one input, bit-exact, every lut; ->
+    (max |error|, the kernel's overflow count)."""
     from duckdb_cubit_tpu_torch.ops import probe
 
-    out, ovf = probe.monotone_gather(lut, keys)
-    want, want_ovf = probe.monotone_gather_reference(lut, keys)
+    outs, ovf = probe.monotone_gather_many(luts, keys)
+    want, want_ovf = probe.monotone_gather_many_reference(luts, keys)
     torch.cuda.synchronize()
-    err = max(int((out.to(torch.int64) - want).abs().max()) if len(keys)
+    err = max(int((outs.to(torch.int64) - want).abs().max()) if len(keys)
               else 0, abs(int(ovf) - int(want_ovf)))
-    print(f"  K2 {label:40s} n={len(keys)} lut={len(lut)} "
+    print(f"  K2 {label:44s} n={len(keys)} luts={len(luts)} "
           f"overflow kernel={int(ovf)} plain={int(want_ovf)} max_err={err}")
     if err:
         raise AssertionError(f"K2 disagrees with plain ({label})")
     return err, int(ovf)
 
 
+def value_luts(lut: torch.Tensor, count: int, seed: int) -> list:
+    """`count` key-space value luts beside a row lut (random values, 0 at
+    the absent slots, as the PK index builds them)."""
+    g = torch.Generator(device=lut.device).manual_seed(seed)
+    return [torch.where(lut >= 0, torch.randint(
+        -2**31, 2**31 - 1, lut.shape, generator=g, device=lut.device,
+        dtype=torch.int32), 0) for _ in range(count)]
+
+
 def k2_parity(device) -> int:
     from duckdb_cubit_tpu_torch.ops import probe
 
     max_err = 0
-    for label, lut, keys in k2_parity_cases():
-        err, ovf = k2_compare(label, torch.as_tensor(lut, device=device),
-                              torch.as_tensor(keys, device=device))
+
+    def check(label, luts, keys, bad=0):
+        nonlocal max_err
+        err, ovf = k2_compare(label, luts, keys)
         max_err = max(max_err, err)
-        if label.startswith("out-of-order"):
-            if ovf < 2:
-                raise AssertionError("K2 did not count the broken keys")
-        elif ovf:
-            raise AssertionError(f"K2 overflowed on sorted keys ({label})")
-    rng = np.random.default_rng(2)
+        if ovf != bad:
+            raise AssertionError(f"K2 counted {ovf} bad keys, expected "
+                                 f"{bad} ({label})")
+
+    for label, lut, keys in k2_parity_cases():
+        k = np.asarray(keys, np.int64)
+        bad = (k < 0) | (k >= len(lut))
+        bad[1:] |= k[1:] < k[:-1]
+        check(label, [torch.as_tensor(lut, device=device)],
+              torch.as_tensor(keys, device=device), int(bad.sum()))
     lut = torch.as_tensor(k2_parity_cases()[0][1], device=device)
+    dense = torch.as_tensor(k2_parity_cases()[0][2], device=device)
+    luts = [lut] + value_luts(lut, 8, seed=5)
+    # one pass over 1, 2, 4 and 8 luts; 9 luts take two launches
+    for m in (1, 2, 4, 8, 9):
+        check(f"dense keys, {m} luts", luts[:m], dense)
+    # views that start 4, 8 and 12 B past a 16-B boundary, and lengths that
+    # fill no quad, no warp span and no block
+    for off in (1, 2, 3):
+        check(f"keys[{off}:], 3 luts", luts[:3], dense[off:])
+    for n in (1, 3, 5, 127, 129, 1_000_003):
+        check(f"n={n}, 2 luts", luts[:2], dense[:n])
+        check(f"n={n} from keys[1:], 2 luts", luts[:2], dense[1:n + 1])
+    # broken keys where a warp span starts (index 128 k: lane 0 reads the
+    # predecessor from memory), at a quad boundary (the predecessor comes
+    # by shuffle) and inside a quad; and the same keys from keys[1:], which
+    # moves every boundary by one key
+    broken = dense[:1_000_000].clone()
+    for i in (128 * 1000, 4 * 30001, 4 * 60001 + 2):
+        broken[i] = broken[i - 1] - 1
+    check("broken at a span, a quad and inside a quad", luts[:4], broken, 3)
+    check("the same broken keys from keys[1:]", luts[:4], broken[1:], 3)
+    rng = np.random.default_rng(2)
     keys = torch.as_tensor(rng.integers(0, len(lut), 2_000_000)
                            .astype(np.int32), device=device)
     got, ovf = probe.gather_via_sort(lut, keys)
     want, want_ovf = probe.gather_via_sort(lut.cpu(), keys.cpu())
     err = max(int((got.cpu().to(torch.int64) - want).abs().max()),
               abs(int(ovf) - int(want_ovf)))
-    print(f"  K2 gather_via_sort, random keys         n={len(keys)} "
+    print(f"  K2 gather_via_sort, random keys             n={len(keys)} "
           f"overflow={int(ovf)} max_err={err}")
     if err or int(ovf):
         raise AssertionError("gather_via_sort disagrees with plain")
@@ -591,22 +656,47 @@ def counted(run, *must_launch):
 
 
 def main_path_inputs(conn, sql: str) -> list:
-    """The (lut, keys) of every K2 call a query makes (a separate run: the
+    """The (luts, keys) of every K2 call a query makes (a separate run: the
     recording wrapper is not the counted main path)."""
     from duckdb_cubit_tpu_torch.ops import probe
 
     calls = []
-    real = probe.monotone_gather
+    real = probe.monotone_gather_many
 
-    def recording(lut, keys):
-        calls.append((lut, keys))
-        return real(lut, keys)
-    probe.monotone_gather = recording
+    def recording(luts, keys):
+        calls.append((list(luts), keys))
+        return real(luts, keys)
+    probe.monotone_gather_many = recording
     try:
         conn.sql(sql).strings()
     finally:
-        probe.monotone_gather = real
+        probe.monotone_gather_many = real
     return calls
+
+
+def pk_probe_profile(conn, sql: str) -> tuple[float, float]:
+    """Device ms per call of the first kernel-path `HashJoin._pk_probe` of a
+    query, from torch.profiler, split into (K2's own kernel, the rest: the
+    key widening and clamp, the liveness scatter and the lut-sized where)."""
+    from duckdb_cubit_tpu_torch.plan.physical import HashJoin
+
+    seen = []
+    real = HashJoin._pk_probe
+
+    def recording(self, *args):
+        result = real(self, *args)
+        if result[2] is not None and not seen:
+            seen.append((self, *args))
+        return result
+    HashJoin._pk_probe = recording
+    try:
+        conn.sql(sql).strings()
+    finally:
+        HashJoin._pk_probe = real
+    join, *args = seen[0]
+    kernels, _ = device_kernel_times(lambda: real(join, *args), RUNS)
+    k2 = sum(ms for name, ms in kernels.items() if "monotone_gather" in name)
+    return k2, sum(kernels.values()) - k2
 
 
 def main() -> int:
@@ -682,7 +772,9 @@ def main() -> int:
                "Q12": lambda: oracle_q12(lineitem, orders),
                "Q3": lambda: oracle_q3(cat.table("customer"), orders,
                                        lineitem)}
-    least_k2 = {"Q1": 0, "Q12": 2, "Q3": 1}
+    # luts of each K2 launch: one launch per PK join on sorted keys, with
+    # the row lut and every value lut the join reads
+    k2_luts = {"Q1": [], "Q12": [2], "Q3": [4]}
     launches["monotone_gather"] = 0
     for name, sql in (("Q1", Q1), ("Q12", Q12), ("Q3", Q3)):
         print(conn.explain(sql))
@@ -695,9 +787,9 @@ def main() -> int:
         if not rows_agree(rows, want):
             raise AssertionError(f"{name} disagrees with the numpy oracle: "
                                  f"{rows} vs {want}")
-        if k2_launches < least_k2[name]:
+        if k2_launches != len(k2_luts[name]):
             raise AssertionError(f"{name} launched K2 {k2_launches} times, "
-                                 f"expected at least {least_k2[name]}")
+                                 f"expected {len(k2_luts[name])}")
         launches["monotone_gather"] += k2_launches
     print(f"Q1, Q12, Q3 equal their numpy oracles; K2 launches "
           f"{launches['monotone_gather']}")
@@ -709,12 +801,17 @@ def main() -> int:
         raise AssertionError("K1 disagrees with plain on Q6's inputs")
     print(f"K1 on Q6 inputs: words {tuple(words.shape)} payload "
           f"{tuple(payloads[0].shape)} packed={packed}; kernel == plain")
-    q12_calls = main_path_inputs(conn, Q12)
-    for i, (lut, keys) in enumerate(q12_calls):
-        label = "Q12 probe (l_orderkey)" if i == 0 \
-            else f"Q12 value fetch {i}"
-        err["monotone_gather"] = max(err["monotone_gather"],
-                                     k2_compare(label, lut, keys)[0])
+    k2_calls = {}
+    for name, sql in (("Q12", Q12), ("Q3", Q3)):
+        k2_calls[name] = main_path_inputs(conn, sql)
+        got = [len(luts) for luts, _ in k2_calls[name]]
+        if got != k2_luts[name]:
+            raise AssertionError(f"{name} gathered {got} luts per K2 call, "
+                                 f"expected {k2_luts[name]}")
+        for luts, keys in k2_calls[name]:
+            err["monotone_gather"] = max(err["monotone_gather"], k2_compare(
+                f"{name} probe (l_orderkey), {len(luts)} luts", luts,
+                keys)[0])
 
     phase("timing")
     print("card:", card)
@@ -736,30 +833,67 @@ def main() -> int:
               f"{wall_ms:.4f} ms wall per query, device busy share "
               f"{dev_ms / wall_ms:.4f}  [{card}]")
         print(f"  top device kernels per query: {top}")
+    for name, sql in (("Q12", Q12), ("Q3", Q3)):
+        k2_dev, prelude = pk_probe_profile(conn, sql)
+        print(f"{name} PK probe profiled: K2 {k2_dev:.4f} ms, the rest of "
+              f"_pk_probe (key widening, clamp, liveness scatter, lut-sized "
+              f"where) {prelude:.4f} ms of device time per call  [{card}]")
 
     flush = flush_buffer(device)
-    times = {}
+    times, bounds, library = {}, {}, {}
     print("K1 at Q6's inputs:")
     times["fused_scan_sum"] = k1_ms, k1_plain_ms = turns(
         lambda: fs.fused_scan_sum(words, payloads, packed),
         lambda: fs.fused_scan_sum_reference(words, payloads, packed),
         flush, card)
     n = payloads[0].shape[0]
-    nominal = n * (4 + 0.125 if packed else 4 * len(payloads) + 0.125)
+    k1_bytes = fs.scan_sum_bytes(words, n, len(payloads))
+    bounds["fused_scan_sum"] = bound_ms(k1_bytes)
+    library["fused_scan_sum"] = None
     print(f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms at n={n} "
-          f"(L2 flushed); effective {nominal / k1_ms / 1e6:.1f} GB/s of "
-          f"{nominal / n:.3f} B/row nominal traffic  [{card}]")
-    lut, keys = q12_calls[0]
-    print(f"K2 at Q12's probe inputs (keys {keys.shape[0]}, lut "
+          f"(L2 flushed); bound {bounds['fused_scan_sum']:.4f} ms "
+          f"({k1_bytes} B: words and the payload sectors holding a selected "
+          f"row), {bounds['fused_scan_sum'] / k1_ms:.3f} of it  [{card}]")
+    # its fixed cost: launch, zeroing and the word pass, no payload sector
+    zero_words = torch.zeros_like(words)
+    fixed_ms = time_cold(lambda: fs.fused_scan_sum(zero_words, payloads,
+                                                   packed), 30, flush)
+    sector_bytes = k1_bytes - fs.scan_sum_bytes(zero_words, n, 1)
+    print(f"K1 on all-zero words {fixed_ms:.4f} ms (L2 flushed); the "
+          f"{sector_bytes} B of payload sectors take the other "
+          f"{k1_ms - fixed_ms:.4f} ms, "
+          f"{sector_bytes / max(k1_ms - fixed_ms, 1e-9) / 1e6:.1f} GB/s  "
+          f"[{card}]")
+    luts, keys = k2_calls["Q12"][0]
+    lut = luts[0]
+    print(f"K2, one lut, at Q12's probe inputs (keys {keys.shape[0]}, lut "
           f"{lut.shape[0]} slots):")
     times["monotone_gather"] = k2_ms, k2_plain_ms = turns(
         lambda: probe.monotone_gather(lut, keys),
         lambda: probe.monotone_gather_reference(lut, keys), flush, card)
-    bare_ms = time_cold(lambda: lut[keys.to(torch.int64)], 30, flush)
+    bounds["monotone_gather"] = bound_ms(probe.gather_bytes(keys, 1))
+    library["monotone_gather"] = time_cold(
+        lambda: lut[keys.to(torch.int64)], 30, flush)
     print(f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms (bare lut[keys] "
-          f"gather {bare_ms:.4f} ms) at n={keys.shape[0]} (L2 flushed); "
-          f"{keys.shape[0] * 12 / k2_ms / 1e6:.1f} GB/s of 12 B/key nominal "
-          f"traffic  [{card}]")
+          f"gather {library['monotone_gather']:.4f} ms) at n={keys.shape[0]} "
+          f"(L2 flushed); bound {bounds['monotone_gather']:.4f} ms, "
+          f"{bounds['monotone_gather'] / k2_ms:.3f} of it  [{card}]")
+    # the main path's passes: one launch over n luts against the n one-lut
+    # launches it replaced
+    k2_passes = []
+    for name in ("Q12", "Q3"):
+        luts, keys = k2_calls[name][0]
+        one = time_cold(lambda: probe.monotone_gather_many(luts, keys), 30,
+                        flush)
+        apart = time_cold(lambda: [probe.monotone_gather(t, keys)
+                                   for t in luts], 30, flush)
+        bound = bound_ms(probe.gather_bytes(keys, len(luts)))
+        k2_passes.append({"query": name, "luts": len(luts), "ms": one,
+                          "one_lut_launches_ms": apart, "bound_ms": bound})
+        print(f"K2 {name} pass, {len(luts)} luts: {one:.4f} ms in one "
+              f"launch vs {apart:.4f} ms in {len(luts)} one-lut launches "
+              f"(L2 flushed); bound {bound:.4f} ms, {bound / one:.3f} of it  "
+              f"[{card}]")
     del flush
 
     phase("entry point: benchmarks.q6bench")
@@ -769,6 +903,8 @@ def main() -> int:
     for name in ("q6_words_i32", "q6_mask8_i32"):
         launches[name] = counts[name]
         times[name] = summary["kernels"][name]
+        bounds[name] = bound_ms(summary["bytes"][name])
+        library[name] = None
     phase("entry point: benchmarks.gather_probe")
     summary, counts = counted(lambda: gather_probe.run(device),
                               "table_gather", "lane_gather")
@@ -776,6 +912,8 @@ def main() -> int:
     for name in ("table_gather", "lane_gather"):
         launches[name] = counts[name]
         times[name] = summary["kernels"][name]
+        bounds[name] = bound_ms(summary["bytes"][name])
+        library[name] = summary["library_ms"][name]
     phase("entry point: bench")
     line, counts = counted(lambda: bench.run(cat, device, args.sf),
                            "fused_scan_sum", "monotone_gather")
@@ -783,12 +921,16 @@ def main() -> int:
     print(f"bench launches: K1 {counts['fused_scan_sum']}, K2 "
           f"{counts['monotone_gather']}")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"duckdb_cubit_tpu_torch/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name in REPLACES]}))
+    table = [{"name": name, "route": "cuda",
+              "source": f"duckdb_cubit_tpu_torch/csrc/{name}.cu",
+              "replaces": REPLACES[name], "launches": launches[name],
+              "max_abs_err": err[name], "ms": times[name][0],
+              "plain_ms": times[name][1], "bound_ms": bounds[name],
+              "bound_by": "bytes", "library_ms": library[name]}
+             for name in REPLACES]
+    k2_row = next(r for r in table if r["name"] == "monotone_gather")
+    k2_row.update(luts_per_launch=k2_luts, passes=k2_passes)
+    print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

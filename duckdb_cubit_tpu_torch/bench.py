@@ -69,7 +69,6 @@ Q6_VARIANTS = 32
 CANONICAL = 24          # (1994, 5, 2399): TPC-H Q6
 PROBE_ITERS = 8
 PASSES = 5
-H100_SXM_BYTES_PER_S = 3.35e12
 
 
 def _per_call(one_pass, calls: int):
@@ -156,7 +155,7 @@ def bench_q6(conn, device, sf: float) -> dict:
         section[f"{name}_rows_per_s"] = n_rows / wall * 1e3
         section[f"{name}_device_rows_per_s"] = rows_s = n_rows / dev * 1e3
         section[f"{name}_device_vs_h100_sxm_3.35TBps"] = \
-            rows_s * nbytes / H100_SXM_BYTES_PER_S
+            rows_s * nbytes / timing.HBM_BYTES_PER_S
         print(f"  q6 {name:6s} wall {wall:.4f} ms/variant "
               f"({n_rows / wall / 1e6:.3f} Grow/s); device {dev:.4f} ms "
               f"({rows_s / 1e9:.3f} Grow/s, {rows_s * nbytes / 1e9:.1f} GB/s "

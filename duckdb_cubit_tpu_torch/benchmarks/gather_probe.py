@@ -75,7 +75,12 @@ def run(device) -> dict:
         raise AssertionError("form D disagrees with form A")
     print(f"gather_probe: N={N} T={T}: A, A2, C, B equal their plain bodies "
           f"and D, bit for bit")
-    summary = {"n": N, "table": T, "forms": {}, "kernels": {}}
+    # bytes each kernel must move (its bound): indices read and outputs
+    # written once, and the table once
+    summary = {"n": N, "table": T, "forms": {}, "kernels": {},
+               "bytes": {"table_gather": 8 * N + 4 * T,
+                         "lane_gather": 8 * N + 4 * T},
+               "library_ms": {}}
     if device.type != "cuda":
         return summary
     card = timing.card_line()
@@ -89,6 +94,21 @@ def run(device) -> dict:
                                   "rows_per_s": N / cold * 1e3}
         print(f"  {name:3s} {cold:.4f} ms (L2 flushed)  {N / cold / 1e3:.1f} "
               f"Mrow/s   back to back {warm:.4f} ms  [{card}]")
+    # one library call per kernel: form D's `tab[idx]` for K5a, and for
+    # K5b `torch.gather` along the lane axis of the table rows, repeated by a
+    # stride-0 view (its int64 index made before timing)
+    summary["library_ms"]["table_gather"] = summary["forms"]["D"]["ms_cold"]
+    rows = tab2.shape[0]
+    tab3 = tab2.expand(li2.shape[0] // rows, rows, gf.LANES)
+    li3 = li2.to(torch.int64).reshape(tab3.shape)
+    if not torch.equal(torch.gather(tab3, 2, li3).reshape(li2.shape),
+                       gf.lane_gather(tab2, li2)[0]):
+        raise AssertionError("torch.gather disagrees with form B")
+    summary["library_ms"]["lane_gather"] = timing.time_cold(
+        lambda: torch.gather(tab3, 2, li3), 30, flush)
+    print(f"  torch.gather along the lanes (K5b's library call) "
+          f"{summary['library_ms']['lane_gather']:.4f} ms (L2 flushed)  "
+          f"[{card}]")
     print("gather_probe: K5a (form A) against its plain body")
     summary["kernels"]["table_gather"] = timing.turns(
         cases["A"][0], cases["A"][1], flush, card)

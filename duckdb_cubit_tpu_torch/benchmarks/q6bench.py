@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import bitmap as bm
+from ..ops import fused_scan as fs
 from ..ops import q6_variants as qv
 from . import timing
 
@@ -136,8 +137,14 @@ def run(catalog, device) -> dict:
     print(f"q6bench: n={n} rows, {NV} variants; K3 == K4 == fused_mask_i32 "
           f"on every variant; {wrapped} of {NV} variants wrapped an int32 "
           f"accumulator (K3 != exact sum, equal modulo 2**32)")
+    # bytes K3 and K4 must move for variant 0 (their bounds): the selector,
+    # and the 32-B sectors of both payloads that hold a selected row (the
+    # byte mask selects the rows of the words' nonzero bytes), 8 B out
+    sectors = fs.scan_sum_bytes(words[0], n, 2) - 4 * (n // 32)
     summary = {"n": n, "variants": NV, "wrapped": wrapped, "forms": {},
-               "kernels": {}}
+               "kernels": {},
+               "bytes": {"q6_words_i32": 4 * (n // 32) + sectors + 8,
+                         "q6_mask8_i32": n + sectors + 8}}
     if device.type != "cuda":
         return summary
     card = timing.card_line()

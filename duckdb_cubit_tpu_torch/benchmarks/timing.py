@@ -27,6 +27,8 @@ import time
 import torch
 
 L2_FLUSH_BYTES = 256 << 20
+# the H100 SXM's device-memory rate (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def card_line() -> str:
@@ -35,6 +37,12 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time the card could take to move `nbytes` once: a
+    kernel's bound where bytes, not operations, limit it."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def flush_buffer(device) -> torch.Tensor:
@@ -70,10 +78,9 @@ def time_warm(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_busy_share(fn, iters: int) -> tuple[float, float, str]:
-    """(device kernel ms, wall ms, top kernels) per call over `iters` calls
-    of `fn`, from torch.profiler's CUDA activity: the device time excludes
-    the gaps in which the card waits for the host."""
+def device_kernel_times(fn, iters: int) -> tuple[dict, float]:
+    """({device kernel name: ms per call}, wall ms per call) over `iters`
+    calls of `fn`, from torch.profiler's CUDA activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -84,14 +91,20 @@ def device_busy_share(fn, iters: int) -> tuple[float, float, str]:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    names = "; ".join(f"{e.key[:60]} "
-                      f"{e.self_device_time_total / 1e3 / iters:.4f} ms"
-                      for e in top)
-    return device_ms / iters, wall_ms / iters, names
+    kernels = {e.key: e.self_device_time_total / 1e3 / iters
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    return kernels, wall_ms / iters
+
+
+def device_busy_share(fn, iters: int) -> tuple[float, float, str]:
+    """(device kernel ms, wall ms, top kernels) per call over `iters` calls
+    of `fn`, from torch.profiler's CUDA activity: the device time excludes
+    the gaps in which the card waits for the host."""
+    kernels, wall_ms = device_kernel_times(fn, iters)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    names = "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top)
+    return sum(kernels.values()), wall_ms, names
 
 
 def turns(kernel, plain, flush: torch.Tensor,

@@ -91,14 +91,40 @@ class CudaKernel:
 
     def launch(self, device: torch.device, *args) -> None:
         """Call the launcher with `args` and the current stream of `device`
-        (its last argument); raise if the launch was refused."""
+        (its last argument); raise if the launch was refused.  The device
+        context is entered only when `device` is not the current one."""
         fn = self.function()
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        index = _index(device)
+        if index == torch.cuda.current_device():
+            rc = fn(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, _raw_stream(index))
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
 
 
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of the current stream of card `index`: one C call per
+    launch, so a caller's `torch.cuda.stream(...)` context is honoured
+    (a handle cached per device would not see it)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+# card index -> multiprocessor count: a fixed property, asked once a card
+_SM_COUNTS: dict[int, int] = {}
+
+
 def sm_count(device: torch.device) -> int:
     """The card's multiprocessor count (launchers size their grids by it)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    index = _index(device)
+    count = _SM_COUNTS.get(index)
+    if count is None:
+        count = _SM_COUNTS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return count

@@ -101,10 +101,21 @@ def fused_scan_sum(words: torch.Tensor, payloads: list,
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     n = payloads[0].shape[0]
-    out = torch.zeros((), dtype=torch.int64, device=words.device)
+    # the launcher zeroes it on the stream: no fill kernel from torch
+    out = torch.empty((), dtype=torch.int64, device=words.device)
     a = payloads[0]
     b = payloads[1] if mode == MODE_PAIR else payloads[0]
     KERNEL.launch(words.device, words.data_ptr(), a.data_ptr(), b.data_ptr(),
                   n, mode, out.data_ptr(), sm_count(words.device))
     launch_count += 1
     return out
+
+
+def scan_sum_bytes(words: torch.Tensor, n: int, n_payloads: int) -> int:
+    """Bytes the scan must move (the bound's numerator): the words that
+    cover n rows (4 B each), and per payload column one 32-B sector for
+    each nonzero byte of them (a word byte selects 8 rows, 32 B of int32
+    payload)."""
+    w = words[:bm.num_words(n)].contiguous()
+    nonzero = int(torch.count_nonzero(w.view(torch.uint8)))
+    return 4 * w.shape[0] + 32 * nonzero * n_payloads

@@ -442,9 +442,10 @@ class HashJoin(PhysicalOperator):
     dense PK index.  `single_match=True` keeps the probe relation's shape
     and gathers build columns through the matched row (no expansion, the
     mask narrows on a miss).  Sorted probe keys go through the monotone
-    gather kernel (`ops/probe.py`), which also fetches build values from
-    key-space value luts.  The general hash build, the reverse-PK semi join
-    and the expansion path come with ROADMAP queue 1 item 9 and raise.
+    gather kernel (`ops/probe.py`), which fetches the row and the build
+    values from key-space value luts in one pass.  The general hash build,
+    the reverse-PK semi join and the expansion path come with ROADMAP queue
+    1 item 9 and raise.
 
     join_type: 'inner' | 'semi' | 'anti' | 'left' | 'full'
     """
@@ -512,21 +513,25 @@ class HashJoin(PhysicalOperator):
             out.append(name)
         return out
 
-    def _pk_probe(self, ctx, probe_rel, build_rel):
+    def _pk_probe(self, ctx, probe_rel, build_rel, value_cols=()):
         """-> (build row or -1, found, the kernel's clipped int32 keys or
-        None when the plain lut path ran)."""
+        None when the plain lut path ran, {column: its build values fetched
+        through its value lut by the same kernel pass}).  `value_cols` are
+        the columns to fetch on the kernel path."""
         base, col, max_key = self._pk
-        pkidx = ctx.catalog.table(base).pk_indexes[col]
+        table = ctx.catalog.table(base)
+        pkidx = table.pk_indexes[col]
         kcol = probe_rel.columns[self.probe_keys[0]]
         if not self._kernel_probe_eligible(kcol, probe_rel, max_key,
                                            build_rel):
             row, found = pkidx.probe(kcol.array, probe_rel.mask,
                                      build_rel.mask)
-            return row, found, None
+            return row, found, None, {}
         # build-side liveness folds into the lut with one scatter, so the
-        # probe is a single kernel pass; an overflow (a key that breaks the
-        # sorted, in-range precondition) is a recoverable deferred check:
-        # the executor sets _no_kernel_probe and runs the query again
+        # probe and every value fetch are a single kernel pass; an overflow
+        # (a key that breaks the sorted, in-range precondition) is a
+        # recoverable deferred check: the executor sets _no_kernel_probe and
+        # runs the query again
         k = kcol.array.to(torch.int64)
         in_range = (k >= 0) & (k <= max_key) & probe_rel.mask
         bk = build_rel.columns[self.build_keys[0]].array.to(torch.int64)
@@ -537,11 +542,27 @@ class HashJoin(PhysicalOperator):
         alive_slots[tgt] = True
         lut_eff = torch.where(alive_slots[: max_key + 1], pkidx.lut,
                               torch.full_like(pkidx.lut, -1))
+        # value luts are built once on the host and cached on the index
+        vluts = []
+        for n in value_cols:
+            bc = table.columns[n]
+            vluts.append(pkidx.device_value_lut(
+                n, bc.host if bc.host is not None else bc.data.cpu().numpy()))
         kc = torch.clamp(k, 0, max_key).to(torch.int32)
-        row, ovf = PPK.monotone_gather(lut_eff, kc)
+        outs, ovf = PPK.monotone_gather_many([lut_eff, *vluts], kc)
         ctx.add_check(self, "pkprobe", ovf == 0)
+        row = outs[0]
         found = in_range & (row >= 0)
-        return torch.where(found, row, torch.full_like(row, -1)), found, kc
+        return (torch.where(found, row, torch.full_like(row, -1)), found, kc,
+                dict(zip(value_cols, outs[1:])))
+
+    def _value_fetches(self, probe_rel, build_rel) -> list[str]:
+        """Build columns the single-match gather takes from value luts: each
+        eligible column the join reads and outputs, without NULLs."""
+        return [n for n in self._vlut_cols
+                if n in build_rel.columns
+                and build_rel.columns[n].valid is None
+                and self.build_prefix + n not in probe_rel.columns]
 
     def _kernel_probe_eligible(self, kcol, probe_rel, max_key,
                                build_rel) -> bool:
@@ -565,34 +586,25 @@ class HashJoin(PhysicalOperator):
             self.prepare(ctx)
         if self._pk is not None and (
                 self.single_match or self.join_type in ("semi", "anti")):
-            build_row, found, kc = self._pk_probe(ctx, probe_rel, build_rel)
             if self.join_type in ("semi", "anti"):
+                found = self._pk_probe(ctx, probe_rel, build_rel)[1]
                 m = ~found if self.join_type == "anti" else found
                 return probe_rel.with_mask(m & probe_rel.mask)
-            return self._gather_single(ctx, probe_rel, build_rel, build_row,
-                                       found, kc)
+            build_row, found, kc, values = self._pk_probe(
+                ctx, probe_rel, build_rel,
+                self._value_fetches(probe_rel, build_rel))
+            return self._gather_single(probe_rel, build_rel, build_row,
+                                       found, kc, values)
         path = "reverse-PK semi join" if self._reverse_pk is not None \
             else "hash build and expansion"
         raise NotImplementedError(
             f"HashJoin {path}: not ported yet (ROADMAP queue 1 item 9)")
 
-    def _gather_single(self, ctx, probe_rel, build_rel, build_row, found,
-                       kernel_keys):
+    def _gather_single(self, probe_rel, build_rel, build_row, found,
+                       kernel_keys, values):
         safe = torch.clamp(build_row, 0, build_rel.capacity - 1)
         left = self.join_type == "left"
         cols = dict(probe_rel.columns)
-        vluts = {}
-        if kernel_keys is not None:
-            base, keycol, _ = self._pk
-            table = ctx.catalog.table(base)
-            pkidx = table.pk_indexes[keycol]
-            # only the luts this join reads: each is built once on the host
-            for n in self._vlut_cols:
-                if n in build_rel.columns:
-                    bc = table.columns[n]
-                    vluts[n] = pkidx.device_value_lut(
-                        n, bc.host if bc.host is not None
-                        else bc.data.cpu().numpy())
         for n, c in build_rel.columns.items():
             out_name = self.build_prefix + n
             if out_name in cols:
@@ -608,14 +620,12 @@ class HashJoin(PhysicalOperator):
                                            c.dtype, c.dictionary, c.domain,
                                            found if left else v)
                 continue
-            if kernel_keys is not None and n in vluts and c.valid is None:
-                # the build VALUE, fetched by the same kernel over the
-                # key-space value lut; garbage at unmatched slots is masked
-                # by `found` exactly like the row gather
-                val, ovf = PPK.monotone_gather(vluts[n], kernel_keys)
-                ctx.add_check(self, "pkprobe", ovf == 0)
-                cols[out_name] = RelColumn(val.to(c.array.dtype), c.dtype,
-                                           c.dictionary, c.domain,
+            if n in values:
+                # the build VALUE, fetched in the probe's kernel pass over
+                # the key-space value lut; garbage at unmatched slots is
+                # masked by `found` exactly like the row gather
+                cols[out_name] = RelColumn(values[n].to(c.array.dtype),
+                                           c.dtype, c.dictionary, c.domain,
                                            found if left else None)
                 continue
             cols[out_name] = RelColumn(c.array[safe], c.dtype, c.dictionary,

@@ -3,8 +3,8 @@
 The native generator (``native/tpch_dbgen.cpp``) implements the TPC-H
 specification with a columnar, offset-addressable API; this module builds it
 with g++ into the port's git-ignored ``_build/`` directory, feeds it the spec
-distribution data (the reference package's ``tpch/dists.json``, read by path)
-and returns each table as a dict of numpy columns.
+distribution data (``tpch/dists.json``, the port's byte-for-byte copy of the
+reference package's) and returns each table as a dict of numpy columns.
 
 Money columns are int64 *cents* (exact fixed-point, the engine's
 DECIMAL(15,2) representation); dates int32 unix epoch days; strings
@@ -28,7 +28,7 @@ _ROOT = os.path.dirname(_PKG)
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libtpchgen.so")
 _SRC_PATH = os.path.join(_ROOT, "native", "tpch_dbgen.cpp")
-_DISTS_PATH = os.path.join(_ROOT, "duckdb_cubit_tpu", "tpch", "dists.json")
+_DISTS_PATH = os.path.join(_PKG, "tpch", "dists.json")
 
 _lock = threading.Lock()
 _lib = None

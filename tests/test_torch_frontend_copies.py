@@ -13,7 +13,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["types.py", "config.py", "sql/lexer.py", "sql/ast.py",
           "sql/parser.py", "sql/binder.py", "tpch/schema.py",
-          "plan/optimizer.py"]
+          "plan/optimizer.py", "tpch/dists.json"]
 
 
 def _body(path: str) -> list[str]:

@@ -75,6 +75,42 @@ def test_wrapper_on_cpu_runs_plain_body_and_counts_no_launch():
     assert int(got) == int(fs.fused_scan_sum_reference(words, payloads, True))
 
 
+def _tile_edge_mask(n, seed):
+    """A mask whose 32-word tiles are all zero, all ones and sparse in turn;
+    n is a multiple of neither 32 nor 1024 (a ragged word and tile)."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random(n) < 0.03
+    tile = 32 * 32
+    for t in range(0, n, tile):
+        kind = (t // tile) % 3
+        if kind < 2:
+            mask[t:t + tile] = kind == 1
+    return mask
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 32 * 33 + 5, 1024 * 7 + 999])
+def test_scan_sum_bytes_match_a_numpy_count(n):
+    mask = _tile_edge_mask(n, seed=n)
+    words, _ = _port_inputs(mask, [mask.astype(np.int32)], False)
+    # two spare words past the rows: not counted
+    words = torch.cat([words, torch.full((2,), -1, dtype=torch.int32)])
+    padded = np.zeros(bm.num_words(n) * 32, bool)
+    padded[:n] = mask
+    nonzero_bytes = int(np.packbits(padded).reshape(-1, 1).any(axis=1).sum())
+    for cols in (1, 2):
+        assert fs.scan_sum_bytes(words, n, cols) == \
+            4 * bm.num_words(n) + 32 * nonzero_bytes * cols
+
+
+@pytest.mark.parametrize("n", [31, 32 * 33 + 5, 1024 * 7 + 999])
+def test_reference_body_on_tile_edges_matches_numpy(n):
+    mask = _tile_edge_mask(n, seed=n)
+    _, a, b = _make(n, seed=n)
+    expect = int((a.astype(np.int64) * b)[mask].sum())
+    words, payloads = _port_inputs(mask, [a, b], True)
+    assert int(fs.fused_scan_sum_reference(words, payloads, True)) == expect
+
+
 def test_pack_columns_matches_reference_bits():
     a = np.array([0, 1, 2**24 - 1, 12345], np.int32)
     b = np.array([0, 255, 7, 128], np.int32)
@@ -115,4 +151,18 @@ def test_cuda_kernel_matches_plain_body(cuda_device, ncols, packed):
     got = fs.fused_scan_sum(words, payloads, packed)
     torch.cuda.synchronize()
     assert fs.launch_count == before + 1
+    assert int(got) == int(fs.fused_scan_sum_reference(words, payloads, packed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols,packed", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("n", [31, 32 * 33 + 5, 1024 * 7 + 999, 1 << 20])
+def test_cuda_kernel_on_tile_edges(cuda_device, n, ncols, packed):
+    """All-zero, all-ones and sparse 32-word tiles; word counts that are not
+    a multiple of the tile, and rows that are not a multiple of 32."""
+    mask = _tile_edge_mask(n, seed=n)
+    _, a, b = _make(n, seed=n)
+    words, payloads = _port_inputs(mask, [a, b][:ncols], packed, cuda_device)
+    got = fs.fused_scan_sum(words, payloads, packed)
+    torch.cuda.synchronize()
     assert int(got) == int(fs.fused_scan_sum_reference(words, payloads, packed))

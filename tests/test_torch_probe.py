@@ -119,6 +119,115 @@ def test_gather_via_sort_matches_pallas():
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref_out))
 
 
+def _value_luts(lut, count, seed):
+    """`count` key-space value luts beside a row lut, as
+    `DirectPKIndex.device_value_lut` builds them (0 at absent slots)."""
+    rng = np.random.default_rng(seed)
+    present = lut >= 0
+    out = []
+    for _ in range(count):
+        v = rng.integers(-2**31, 2**31, lut.shape[0]).astype(np.int32)
+        v[~present] = 0
+        out.append(v)
+    return out
+
+
+def _broken_dense_case():
+    """The dense case with a key below its predecessor, a negative key and
+    one past the lut's end."""
+    lut, keys = _dense_case()
+    keys = keys.copy()
+    keys[1000] = keys[999] - 1
+    keys[5000] = -3
+    keys[9000] = lut.shape[0]
+    return lut, keys
+
+
+_MANY_CASES = {"dense": _dense_case, "absent": _absent_case,
+               "broken": _broken_dense_case}
+
+
+@pytest.fixture(scope="module")
+def pallas_outs():
+    """(luts, keys, the Pallas kernel's (out, overflow) per lut) per case:
+    nine luts, the row lut first, each run once through the reference."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            lut, keys = _MANY_CASES[case]()
+            luts = [lut] + _value_luts(lut, 8, seed=len(keys))
+            ref = [PP.monotone_gather(jnp.asarray(t), jnp.asarray(keys),
+                                      interpret=True) for t in luts]
+            cache[case] = luts, keys, [(np.asarray(o), int(v))
+                                       for o, v in ref]
+        return cache[case]
+    return get
+
+
+@pytest.mark.parametrize("n_luts", [1, 2, 4, 9])
+@pytest.mark.parametrize("case", list(_MANY_CASES))
+def test_many_luts_match_pallas_once_per_lut(pallas_outs, case, n_luts):
+    """The many-lut body gives, lut by lut, what the Pallas kernel gives for
+    that lut alone, and one overflow: the one-lut overflow."""
+    luts, keys, ref = pallas_outs(case)
+    luts, ref = luts[:n_luts], ref[:n_luts]
+    outs, ovf = probe.monotone_gather_many(
+        [torch.as_tensor(t) for t in luts], torch.as_tensor(keys))
+    assert tuple(outs.shape) == (n_luts, len(keys))
+    one_ovf = int(probe.monotone_gather(torch.as_tensor(luts[0]),
+                                        torch.as_tensor(keys))[1])
+    assert int(ovf) == one_ovf
+    k = keys.astype(np.int64)
+    bad = (k < 0) | (k >= len(luts[0]))
+    bad[1:] |= k[1:] < k[:-1]
+    # broken: the three keys, and the one after the key past the end
+    assert one_ovf == int(bad.sum()) == (4 if case == "broken" else 0)
+    for j, (ref_out, ref_ovf) in enumerate(ref):
+        got = outs[j].numpy()
+        if case == "broken":
+            # the reference flags the block too; away from the bad keys
+            # both give the lut's values
+            assert ref_ovf > 0
+            np.testing.assert_array_equal(got[bad], -1)
+            np.testing.assert_array_equal(got[~bad], ref_out[~bad])
+        else:
+            assert ref_ovf == 0
+            np.testing.assert_array_equal(got, ref_out)
+        np.testing.assert_array_equal(
+            got, probe.monotone_gather_reference(
+                torch.as_tensor(luts[j]), torch.as_tensor(keys))[0].numpy())
+
+
+def test_many_luts_on_a_view_and_tiny_lengths():
+    """keys[1:] (a view that starts 4 B past an allocation) and lengths
+    that fill no vector: the plain body is the one-lut body per lut."""
+    lut, keys = _broken_dense_case()
+    luts = [torch.as_tensor(t) for t in [lut] + _value_luts(lut, 2, 7)]
+    tk = torch.as_tensor(keys)
+    for view in (tk[1:], tk[995:996], tk[997:1000], tk[998:1003]):
+        outs, ovf = probe.monotone_gather_many(luts, view)
+        for j, t in enumerate(luts):
+            want, want_ovf = probe.monotone_gather_reference(t, view)
+            assert torch.equal(outs[j], want) and int(ovf) == int(want_ovf)
+
+
+def test_many_luts_reject_luts_of_other_lengths():
+    lut = torch.arange(100, dtype=torch.int32)
+    keys = torch.arange(50, dtype=torch.int32)
+    for luts in ([], [lut, lut[:99]], [lut, lut.to(torch.int64)]):
+        with pytest.raises((TypeError, ValueError)):
+            probe.monotone_gather_many(luts, keys)
+
+
+def test_gather_bytes_match_a_numpy_count():
+    _, keys = _dense_case()
+    for n_luts in (1, 2, 4):
+        want = (4 * len(keys) + 4 * len(keys) * n_luts
+                + 32 * n_luts * (len(np.unique(keys)) >> 3))
+        assert probe.gather_bytes(torch.as_tensor(keys), n_luts) == want
+
+
 @pytest.mark.parametrize("n_keys,lut_size", [
     (100, 1000), (PP._BLOCK // 4 - 1, 1000), (PP._BLOCK // 4, 1000),
     (PP._BLOCK, 0), (PP._BLOCK, 1000), (6_001_215, 6_000_001)])
@@ -196,3 +305,23 @@ def test_cuda_kernel_matches_plain_body(cuda_device, case):
     assert probe.launch_count == before + 1
     want, want_ovf = probe.monotone_gather_reference(tl, tk)
     assert torch.equal(out, want) and int(ovf) == int(want_ovf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_luts", [1, 2, 4, 8, 9])
+@pytest.mark.parametrize("case", ["dense", "broken", "view"])
+def test_cuda_many_lut_kernel_matches_plain_body(cuda_device, case, n_luts):
+    """One launch per 8 luts; every output row and the one overflow equal
+    the plain body, on a view that starts 4 B past an allocation too."""
+    lut, keys = (_dense_case if case == "dense" else _broken_dense_case)()
+    luts = [torch.as_tensor(t, device=cuda_device)
+            for t in [lut] + _value_luts(lut, n_luts - 1, 3)]
+    tk = torch.as_tensor(keys, device=cuda_device)
+    if case == "view":
+        tk = tk[1:]
+    before = probe.launch_count
+    outs, ovf = probe.monotone_gather_many(luts, tk)
+    torch.cuda.synchronize()
+    assert probe.launch_count == before + (n_luts + 7) // 8
+    want, want_ovf = probe.monotone_gather_many_reference(luts, tk)
+    assert torch.equal(outs, want) and int(ovf) == int(want_ovf)

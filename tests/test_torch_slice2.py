@@ -229,14 +229,15 @@ def test_tpch_answers_at_sf001(port_conns):
 
 @pytest.fixture
 def gather_calls(monkeypatch):
-    """Counts calls of the monotone gather wrapper by the operators."""
+    """The lut count of each call of the many-lut gather wrapper by the
+    operators."""
     calls = []
-    real = probe.monotone_gather
+    real = probe.monotone_gather_many
 
-    def counting(lut, keys):
-        calls.append(lut.shape[0])
-        return real(lut, keys)
-    monkeypatch.setattr(probe, "monotone_gather", counting)
+    def counting(luts, keys):
+        calls.append(len(luts))
+        return real(luts, keys)
+    monkeypatch.setattr(probe, "monotone_gather_many", counting)
     return calls
 
 
@@ -246,12 +247,27 @@ def gather_calls(monkeypatch):
 def test_kernel_branch_of_the_pk_probe_runs(port_conns, gather_calls, name,
                                             least):
     """Sorted l_orderkey probes take the kernel branch of _pk_probe and fetch
-    build values through value luts: Q12 gathers twice (the probe, and
-    o_orderpriority), every other join at least once."""
+    build values through value luts in the same pass: each join makes one
+    call with the row lut and every value lut it reads; Q12 makes one call
+    with 2 luts (the row, and o_orderpriority)."""
     port_conns["generated"].sql(QUERIES[name]).strings()
-    assert len(gather_calls) >= least
+    assert len(gather_calls) == 1
+    assert gather_calls[0] >= least
     if name == "q12":
-        assert len(gather_calls) == 2
+        assert gather_calls == [2]
+
+
+@pytest.mark.parametrize("name,luts", [("q12", [2]), ("q3", [4]),
+                                       ("semi_join_pk", [1])])
+def test_one_gather_call_per_pk_join(ref_rows, port_conns, gather_calls,
+                                     name, luts):
+    """Q12's join fetches its row and o_orderpriority in one call; Q3's
+    lineitem -> orders join its row, o_orderdate, o_shippriority and
+    o_custkey; a semi join the row alone.  The rows equal the
+    reference's."""
+    _assert_rows_match(port_conns["generated"].sql(QUERIES[name]),
+                       ref_rows(name))
+    assert gather_calls == luts
 
 
 def test_overflow_retries_on_the_plain_path(ref_rows, port_conns,
@@ -260,14 +276,14 @@ def test_overflow_retries_on_the_plain_path(ref_rows, port_conns,
     _no_kernel_probe on the join, which changes its signature (a new
     prepare-cache entry), and runs the query again on the plain lut."""
     conn = port_conns["generated"]
-    real = probe.monotone_gather
+    real = probe.monotone_gather_many
     seen = []
 
-    def overflow_once(lut, keys):
-        out, ovf = real(lut, keys)
+    def overflow_once(luts, keys):
+        outs, ovf = real(luts, keys)
         seen.append(1)
-        return out, ovf + 1 if len(seen) == 1 else ovf
-    monkeypatch.setattr(probe, "monotone_gather", overflow_once)
+        return outs, ovf + 1 if len(seen) == 1 else ovf
+    monkeypatch.setattr(probe, "monotone_gather_many", overflow_once)
     retries = conn.executor.retry_count
     result = conn.sql(Q12)
     _assert_rows_match(result, ref_rows("q12"))
@@ -286,10 +302,10 @@ def test_unrecoverable_check_raises(port_conns, monkeypatch):
     conn = port_conns["generated"]
     monkeypatch.setattr(Executor, "_handle_failed_checks",
                         staticmethod(lambda failed, ops: False))
-    real = probe.monotone_gather
-    monkeypatch.setattr(probe, "monotone_gather",
-                        lambda lut, keys: (real(lut, keys)[0],
-                                           real(lut, keys)[1] + 1))
+    real = probe.monotone_gather_many
+    monkeypatch.setattr(probe, "monotone_gather_many",
+                        lambda luts, keys: (real(luts, keys)[0],
+                                            real(luts, keys)[1] + 1))
     with pytest.raises(RuntimeError, match="pkprobe"):
         conn.sql(Q12)
 
