@@ -25,7 +25,12 @@ raises on failure (non-zero exit):
      boundary and inside a quad (the count must be 3); and gather_via_sort
      on random keys.  K3 / K4 on a length that is a multiple of 32 but not
      of 1024, all-ones words, a wrapping low half, negative products and
-     (K4) every mask byte.  K5a on tables of 8192, 37 and 12288 entries,
+     (K4) every mask byte; on 32 k rows with k a multiple of neither 4, 16
+     nor 32 (ragged steps, tiles and K4's scalar tail), all-zero words and
+     mask, zero 4-row groups beside nonzero ones, every byte value at every
+     position of K4's 16-B mask loads, the views the wrapper takes
+     (`words[k:]` with `a[32 k:]`, `mask[16 k:]` with `a[16 k:]`, rows of
+     a stack) and one it refuses.  K5a on tables of 8192, 37 and 12288 entries,
      1-D and (N/128, 128) shapes, indices 0 and T-1, a ragged length and
      indices out of range (the count must match); K5b on 64 and 3 table
      rows, row counts that are and are not multiples of them, and bad lane
@@ -50,7 +55,10 @@ raises on failure (non-zero exit):
   6. entry points, each with every launch count set to 0 just before it
      and read just after, on the catalog already loaded:
      `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
-     K4 must launch), `benchmarks.gather_probe` (N = 2**22, T = 2**13; K5a
+     K4 must launch; then K3 on all-zero words and K4 on an all-zero mask,
+     L2 flushed: their fixed cost beside their time at variant 0, and that
+     time after a flush that leaves the L2 clean),
+     `benchmarks.gather_probe` (N = 2**22, T = 2**13; K5a
      and K5b must launch) and `bench` (32 Q6 variants and the l_orderkey ->
      orders probes; K1 and K2 must launch).  Each checks its own results
      and prints its times.
@@ -576,7 +584,98 @@ def k3k4_parity(device) -> tuple[int, int]:
     k4_err = max(k4_err, _pair_err("K4 every mask byte in -128..127",
                                    qv.q6_mask8_i32(m, a, b),
                                    qv.q6_mask8_i32_reference(m, a, b)))
-    return k3_err, k4_err
+    k3_new, k4_new = k3k4_new_paths(device, rng)
+    return max(k3_err, k3_new), max(k4_err, k4_new)
+
+
+def zero_group_words(rng, k: int) -> np.ndarray:
+    """k random words with each 4-bit group (4 rows) zeroed at random: zero
+    groups beside nonzero ones; int32 bit patterns."""
+    words = rng.integers(0, 2**32, k, dtype=np.uint64)
+    keep = (rng.random((k, 8)) < 0.5).astype(np.uint64)
+    nibbles = np.uint64(0xF) << (np.uint64(4) * np.arange(8, dtype=np.uint64))
+    return (words & (keep * nibbles).sum(1, dtype=np.uint64)) \
+        .astype(np.uint32).view(np.int32)
+
+
+def signed_mask(rng, words: np.ndarray) -> np.ndarray:
+    """A nonzero signed byte in -128..127 where a word's bit is set, 0
+    elsewhere: the int8 mask of the same rows."""
+    bits = (words.view(np.uint32)[:, None] >> np.arange(32, dtype=np.uint32)) \
+        & 1
+    vals = rng.integers(-128, 128, bits.size)
+    vals[vals == 0] = 1
+    return np.where(bits.reshape(-1) != 0, vals, 0).astype(np.int8)
+
+
+def k3k4_new_paths(device, rng) -> tuple[int, int]:
+    """K3 / K4 on the paths of their Hopper design: ragged steps, tiles and
+    tails, zero selectors, zero 4-row groups beside nonzero ones, every byte
+    value at every position of a 16-B mask load, and the views the wrapper
+    takes (and one it refuses); -> (K3 max err, K4 max err)."""
+    from duckdb_cubit_tpu_torch.ops import bitmap as bm
+    from duckdb_cubit_tpu_torch.ops import q6_variants as qv
+
+    err = {"K3": 0, "K4": 0}
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    def k3(label, w, a, b):
+        err["K3"] = max(err["K3"], _pair_err(
+            f"K3 {label}", qv.q6_words_i32(w, a, b),
+            qv.q6_words_i32_reference(w, a, b)))
+
+    def k4(label, m, a, b):
+        err["K4"] = max(err["K4"], _pair_err(
+            f"K4 {label}", qv.q6_mask8_i32(m, a, b),
+            qv.q6_mask8_i32_reference(m, a, b)))
+
+    def payload(n):
+        return dev(rng.integers(-2**31, 2**31, n).astype(np.int32))
+
+    # 32 k rows, k a multiple of neither 4, 16 nor 32: K3's last step and
+    # tile are ragged, K4 ends in a scalar tail (its steps are 512 rows)
+    for k in (1, 3, 6, 18, 37, 1001, 100_003):
+        n = 32 * k
+        words = zero_group_words(rng, k)
+        w, a, b = dev(words), payload(n), payload(n)
+        k3(f"n=32*{k}, zero 4-row groups beside nonzero", w, a, b)
+        k4(f"n=32*{k}, 0/1 mask of the same words", bm.expand(
+            w, n).to(torch.int8), a, b)
+        k4(f"n=32*{k}, signed mask, zero 4-row groups",
+           dev(signed_mask(rng, words)), a, b)
+    n = 1 << 20
+    a, b = payload(n), payload(n)
+    k3("all-zero words", dev(np.zeros(n // 32, np.int32)), a, b)
+    k4("all-zero mask", dev(np.zeros(n, np.int8)), a, b)
+    # byte j of 16-B load s is (s + 37 j) mod 256: every value at every
+    # position of the loads
+    s, j = np.arange(n // 16)[:, None], np.arange(16)[None, :]
+    k4("every byte value at every position of a 16-B load",
+       dev(((s + 37 * j) % 256).astype(np.uint8).view(np.int8).reshape(-1)),
+       a, b)
+    # views: a word holds 128 B of each payload, so words[k:] with a[32 k:]
+    # stays aligned, as do mask[16 k:] with a[16 k:] and the rows of a
+    # stack (q6bench passes words[v] and masks[v])
+    n = 32 * 4099
+    words = dev(zero_group_words(rng, 3 * n // 32).reshape(3, n // 32))
+    masks = dev(rng.integers(-128, 128, (3, n)).astype(np.int8))
+    a, b = payload(n), payload(n)
+    for k in (1, 3):
+        k3(f"words[{k}:], a[{32 * k}:], b[{32 * k}:]", words[0, k:],
+           a[32 * k:], b[32 * k:])
+        k4(f"mask[{16 * k}:], a[{16 * k}:], b[{16 * k}:]", masks[0, 16 * k:],
+           a[16 * k:], b[16 * k:])
+    k3("row 2 of a (3, n/32) words stack", words[2], a, b)
+    k4("row 2 of a (3, n) mask stack", masks[2], a, b)
+    try:
+        qv.q6_mask8_i32(masks[0, 4:], a[4:], b[4:])
+    except ValueError as e:
+        print(f"  K4 mask[4:], a[4:], b[4:] refused: {e}")
+    else:
+        raise AssertionError("K4 took a view off a 16-B boundary")
+    return err["K3"], err["K4"]
 
 
 def _gather_err(label: str, got, want) -> int:
@@ -640,6 +739,45 @@ def k5_parity(device) -> tuple[int, int]:
     if int(got[1]) != 3:
         raise AssertionError("K5b did not count the bad lane indices")
     return k5a_err, k5b_err
+
+
+def k3k4_fixed_cost(catalog, device, summary, times, card) -> tuple:
+    """K3 on all-zero words and K4 on an all-zero mask at q6bench's n, L2
+    flushed: the launch, the selector pass and the finish without any
+    payload.  Prints each beside the kernel's time at variant 0, so that
+    time splits into that fixed cost and payload streaming, and beside its
+    time at variant 0 after a flush that leaves the L2 clean (the standard
+    flush leaves it dirty, and a call that evicts those lines writes them
+    back); -> ({name: fixed ms}, {name: clean-L2 ms})."""
+    from duckdb_cubit_tpu_torch.benchmarks import q6bench
+    from duckdb_cubit_tpu_torch.ops import q6_variants as qv
+
+    ep, di = q6bench.payloads(catalog, device)
+    n = ep.shape[0]
+    words, masks = q6bench.variants(n, 1, device)   # variant 0
+    zero_words = torch.zeros(n // 32, dtype=torch.int32, device=device)
+    zero_mask = torch.zeros(n, dtype=torch.int8, device=device)
+    flush = flush_buffer(device)
+    fixed = {"q6_words_i32": time_cold(
+                 lambda: qv.q6_words_i32(zero_words, ep, di), 30, flush),
+             "q6_mask8_i32": time_cold(
+                 lambda: qv.q6_mask8_i32(zero_mask, ep, di), 30, flush)}
+    clean = {"q6_words_i32": time_cold(
+                 lambda: qv.q6_words_i32(words[0], ep, di), 30, flush, True),
+             "q6_mask8_i32": time_cold(
+                 lambda: qv.q6_mask8_i32(masks[0], ep, di), 30, flush, True)}
+    selector = {"q6_words_i32": 4 * (n // 32), "q6_mask8_i32": n}
+    for name, label in (("q6_words_i32", "K3 on all-zero words"),
+                        ("q6_mask8_i32", "K4 on an all-zero mask")):
+        ms, f = times[name][0], fixed[name]
+        payload = summary["bytes"][name] - selector[name] - 8
+        print(f"{label} {f:.4f} ms (L2 flushed; launch, the "
+              f"{selector[name]} B selector pass, the finish) against {ms:.4f} ms at "
+              f"variant 0: the {payload} B of payload sectors take the other "
+              f"{ms - f:.4f} ms, {payload / max(ms - f, 1e-9) / 1e6:.1f} "
+              f"GB/s; at variant 0 after a flush that leaves the L2 clean "
+              f"{clean[name]:.4f} ms  [{card}]")
+    return fixed, clean
 
 
 def counted(run, *must_launch):
@@ -905,6 +1043,7 @@ def main() -> int:
         times[name] = summary["kernels"][name]
         bounds[name] = bound_ms(summary["bytes"][name])
         library[name] = None
+    fixed, clean = k3k4_fixed_cost(cat, device, summary, times, card)
     phase("entry point: benchmarks.gather_probe")
     summary, counts = counted(lambda: gather_probe.run(device),
                               "table_gather", "lane_gather")
@@ -930,6 +1069,10 @@ def main() -> int:
              for name in REPLACES]
     k2_row = next(r for r in table if r["name"] == "monotone_gather")
     k2_row.update(luts_per_launch=k2_luts, passes=k2_passes)
+    for row in table:
+        if row["name"] in fixed:
+            row.update(fixed_ms=fixed[row["name"]],
+                       clean_l2_ms=clean[row["name"]])
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

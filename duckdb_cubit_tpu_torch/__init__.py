@@ -7,8 +7,9 @@ the reference: every module here has its counterpart at the same path there,
 and the tests hold the two against each other.
 
 Rules of the port:
-  - tensors live on an explicit device: `connect(sf, device=...)` takes it
-    and never picks one;
+  - tensors live on the card unless the caller asks for the CPU:
+    `connect(sf)` defaults to `device="cuda"`, and without a card it raises
+    rather than move to the CPU;
   - each hand kernel sits behind one wrapper with two bodies, chosen only
     by the input tensor's device: a CPU tensor runs the plain torch body, a
     CUDA tensor launches the kernel or raises;

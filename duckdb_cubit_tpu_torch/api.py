@@ -2,9 +2,12 @@
 
 Counterpart of `duckdb_cubit_tpu/api.py`: `Connection.sql()` drives parse ->
 bind -> optimize -> execute over the port's device tensors.  The device is
-explicit: `connect(sf, device=...)` and `Connection(..., device=...)` take
-it, and every table of the catalog must live on it.  This slice runs SELECT
-statements; other statements, meshes and transactions come later.
+the card unless the caller asks for another: `connect(sf)` and
+`Connection(...)` default to `device="cuda"` (and raise where there is no
+card; nothing falls back to the CPU), `device="cpu"` runs the plain torch
+bodies.  Every table of the catalog must live on the connection's device.
+This slice runs SELECT statements; other statements, meshes and
+transactions come later.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ class Result:
 
 class Connection:
     def __init__(self, catalog: Catalog | None = None, config=None, *,
-                 device):
+                 device="cuda"):
         from .config import EngineConfig
 
         self.device = torch.device(device)
@@ -105,9 +108,10 @@ class Connection:
         return "\n".join(lines)
 
 
-def connect(sf: float | None = None, *, device) -> Connection:
-    """Open a connection whose tensors live on `device` ("cuda", "cpu",
-    ...); with `sf`, load the TPC-H catalog at that scale factor."""
+def connect(sf: float | None = None, *, device="cuda") -> Connection:
+    """Open a connection whose tensors live on `device` (the card unless the
+    caller asks for "cpu"); with `sf`, load the TPC-H catalog at that scale
+    factor."""
     conn = Connection(device=device)
     if sf is not None:
         conn.load_tpch(sf)

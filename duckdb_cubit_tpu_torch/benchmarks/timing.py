@@ -6,7 +6,9 @@ readings:
 
   - `time_cold`: median device time of single calls with the L2 cache
     flushed before each (a 256 MB write, five times the H100's 50 MB L2),
-    as a caller finds the inputs after other work;
+    as a caller finds the inputs after other work; the L2 is then full of
+    dirty lines, which a call that evicts them writes back.  With `clean`
+    the flush reads the 256 MB instead and leaves nothing to write back;
   - `time_warm`: mean time of back-to-back calls, host launch cost
     included, inputs possibly in L2;
   - `device_busy_share`: the device kernels' own time per call beside the
@@ -50,11 +52,17 @@ def flush_buffer(device) -> torch.Tensor:
     return torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
 
 
-def time_cold(fn, iters: int, flush: torch.Tensor) -> float:
-    """Median ms of `fn` with the L2 cache flushed before each call."""
+def time_cold(fn, iters: int, flush: torch.Tensor,
+              clean: bool = False) -> float:
+    """Median ms of `fn` with the L2 cache flushed before each call: by
+    writing `flush` (the L2 is left dirty) or, with `clean`, by reading
+    it."""
     times = []
     for _ in range(iters):
-        flush.add_(1)
+        if clean:
+            flush.sum()
+        else:
+            flush.add_(1)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -20,7 +20,11 @@ wraps included, and `benchmarks/q6bench.py` of the port checks it modulo
 Each wrapper has two bodies, chosen only by the tensors' device: CUDA
 tensors launch the hand-written kernel (`csrc/q6_words_i32.cu`,
 `csrc/q6_mask8_i32.cu`) or raise; CPU tensors run the plain torch body
-(`*_reference`), which computes in int64 and wraps explicitly.
+(`*_reference`), which computes in int64 and wraps explicitly.  The
+kernels load 16 B at a time, so the payloads (and K4's mask) must start on
+a 16-B boundary: `words[k:]` with `a[32 k:]`, or `mask[16 k:]` with
+`a[16 k:]`, is taken, `a[1:]` is refused with a ValueError on either
+device.
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ from . import bitmap as bm
 from .cuda_build import CudaKernel, sm_count
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p]
 WORDS_KERNEL = CudaKernel("q6_words_i32.cu", "q6_words_i32_launch",
                           _ARGTYPES)
 MASK8_KERNEL = CudaKernel("q6_mask8_i32.cu", "q6_mask8_i32_launch",
@@ -43,6 +47,21 @@ MASK8_KERNEL = CudaKernel("q6_mask8_i32.cu", "q6_mask8_i32_launch",
 # launches of each CUDA kernel (never counts the plain bodies)
 words_launch_count = 0
 mask8_launch_count = 0
+
+# (card, stream handle) -> the kernels' (2,) int64 scratch on that stream:
+# zero when made, and each launch leaves it zero again, so launches on one
+# stream (which run in turn) share it and no launch needs a memset first
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch(device: torch.device) -> torch.Tensor:
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = _SCRATCH[key] = torch.zeros(2, dtype=torch.int64,
+                                              device=device)
+    return scratch
 
 
 def _wrap(x: torch.Tensor) -> torch.Tensor:
@@ -70,6 +89,15 @@ def _check_payloads(a: torch.Tensor, b: torch.Tensor, n: int, device):
             raise ValueError("all tensors must share one device")
 
 
+def _check_aligned(**tensors):
+    """The kernels' 16-B loads: each tensor must start on a 16-B boundary
+    (the same check on the CPU, so CPU tests cover it)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must start on a 16-B boundary, starts "
+                             f"{t.data_ptr() % 16} B past one")
+
+
 def _check_words(words, a, b):
     if words.dtype != torch.int32:
         raise TypeError(f"words: int32 bit patterns expected, got "
@@ -77,6 +105,7 @@ def _check_words(words, a, b):
     if words.ndim != 1 or not words.is_contiguous():
         raise ValueError("words: a contiguous 1-d tensor expected")
     _check_payloads(a, b, 32 * words.shape[0], words.device)
+    _check_aligned(a=a, b=b)
 
 
 def _check_mask8(mask, a, b):
@@ -85,6 +114,7 @@ def _check_mask8(mask, a, b):
     if mask.ndim != 1 or not mask.is_contiguous():
         raise ValueError("mask: a contiguous 1-d tensor expected")
     _check_payloads(a, b, mask.shape[0], mask.device)
+    _check_aligned(mask=mask, a=a, b=b)
 
 
 def q6_words_i32_reference(words, a, b) -> torch.Tensor:
@@ -98,21 +128,24 @@ def q6_mask8_i32_reference(mask, a, b) -> torch.Tensor:
 
 
 def _device_body(kernel, selector, a, b, n) -> torch.Tensor:
-    """Launch `kernel` over n rows on the card: -> (2,) int32 [hi, lo]."""
-    if selector.device.type != "cuda":
-        raise ValueError(f"unsupported device {selector.device}")
-    out = torch.zeros(2, dtype=torch.int32, device=selector.device)
-    if n:
-        kernel.launch(selector.device, selector.data_ptr(), a.data_ptr(),
-                      b.data_ptr(), n, out.data_ptr(),
-                      sm_count(selector.device))
+    """Launch `kernel` over n words or rows on the card (the kernel writes
+    every byte of the output): -> (2,) int32 [hi, lo]."""
+    device = selector.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if not n:
+        return torch.zeros(2, dtype=torch.int32, device=device)
+    out = torch.empty(2, dtype=torch.int32, device=device)
+    kernel.launch(device, selector.data_ptr(), a.data_ptr(), b.data_ptr(), n,
+                  _scratch(device).data_ptr(), out.data_ptr(),
+                  sm_count(device))
     return out
 
 
 def q6_words_i32(words, a, b) -> torch.Tensor:
     """K3: -> (2,) int32 [sum(prod >> 16), sum(prod & 0xFFFF)] modulo 2**32,
     prod = int32(a * bit * b).  words: int32 (n/32,) bit patterns; a, b:
-    int32 (n,) with n = 32 * len(words)."""
+    int32 (n,) with n = 32 * len(words), each starting 16-B aligned."""
     global words_launch_count
     _check_words(words, a, b)
     if words.device.type == "cpu":
@@ -125,7 +158,7 @@ def q6_words_i32(words, a, b) -> torch.Tensor:
 
 def q6_mask8_i32(mask, a, b) -> torch.Tensor:
     """K4: the same pair with prod = int32(a * int32(mask) * b).  mask:
-    int8 (n,), any byte; a, b: int32 (n,)."""
+    int8 (n,), any byte; a, b: int32 (n,); all three 16-B aligned."""
     global mask8_launch_count
     _check_mask8(mask, a, b)
     if mask.device.type == "cpu":

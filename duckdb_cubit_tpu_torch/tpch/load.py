@@ -120,9 +120,11 @@ def _register_schema(catalog: Catalog):
         catalog.table(tname).unique_keys = list(keys)
 
 
-def load_catalog(sf: float = 0.01, *, device, with_indexes: bool = True,
-                 cache: bool = True, disk_cache: bool = True) -> Catalog:
-    """The TPC-H catalog at scale factor `sf`, every tensor on `device`.
+def load_catalog(sf: float = 0.01, *, device="cuda",
+                 with_indexes: bool = True, cache: bool = True,
+                 disk_cache: bool = True) -> Catalog:
+    """The TPC-H catalog at scale factor `sf`, every tensor on `device` (the
+    card unless the caller asks for "cpu").
 
     Strings are dictionary-encoded once on the host (the reference encodes
     them in `from_numpy`, or in its disk-cache writer and then again; the

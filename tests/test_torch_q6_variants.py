@@ -7,8 +7,12 @@ The script loads SF1 at import, so its kernels (`q6_kernel`,
 `ast` and run here with the script's own BlockSpecs (BLK 8192, grid 9) in
 Pallas interpret mode on the CPU.  The port's plain bodies must equal them
 bit for bit: the (2,) int32 [hi, lo] pair, wraps included (tolerance 0).
-The CUDA cases hold the hand-written kernels against the plain bodies on
-the card and skip where there is none.
+The Pallas kernels take only multiples of their block, so the cases of the
+kernels' Hopper design (ragged lengths, zero 4-row groups, every mask byte
+at every position of a 16-B load, views) hold the plain bodies against a
+numpy oracle instead, and the wrappers' refusal of views off a 16-B
+boundary is checked here.  The CUDA cases hold the hand-written kernels
+against the plain bodies on the card and skip where there is none.
 """
 
 import ast
@@ -91,7 +95,8 @@ def _mask_of(words_u32):
 
 
 def _t(a):
-    return torch.as_tensor(np.ascontiguousarray(a))
+    """A copy in torch's own memory, which starts on a 16-B boundary."""
+    return torch.tensor(np.ascontiguousarray(a))
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -176,6 +181,116 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             qv.q6_mask8_i32(mask.to(torch.int32), a, a)
 
 
+def _oracle(m, a, b):
+    """numpy: prod = int32(a * m * b) (uint64 products modulo 2**32), then
+    [sum(prod >> 16), sum(prod & 0xFFFF)], each modulo 2**32."""
+    p = a.astype(np.uint64) * m.astype(np.uint64) * b.astype(np.uint64)
+    prod = (p & 0xFFFFFFFF).astype(np.uint32).view(np.int32).astype(np.int64)
+    return np.array([(int(x) + 2**31) % 2**32 - 2**31
+                     for x in ((prod >> 16).sum(), (prod & 0xFFFF).sum())],
+                    np.int32)
+
+
+def _zero_group_words(rng, k):
+    """k random words with each 4-bit group (4 rows) zeroed at random."""
+    words = rng.integers(0, 2**32, k, dtype=np.uint64)
+    keep = (rng.random((k, 8)) < 0.5).astype(np.uint64)
+    nibbles = np.uint64(0xF) << (np.uint64(4) * np.arange(8, dtype=np.uint64))
+    return (words & (keep * nibbles).sum(1, dtype=np.uint64)).astype(np.uint32)
+
+
+# the paths of the kernels' Hopper design: 32 k rows with k a multiple of
+# neither 4, 16 nor 32 (K3's ragged steps and tiles, K4's scalar tail past
+# its 512-row steps), all-zero selectors, every mask byte at every position
+# of K4's 16-B loads
+NEW_CASES = [f"n=32*{k}, zero 4-row groups" for k in (1, 3, 6, 18, 37, 1001)] \
+    + ["all-zero words and mask", "every byte at every position of a 16-B load"]
+
+
+def _new_case(name):
+    """-> (uint32 words, int8 mask, int32 a, int32 b), made from a seed; the
+    mask is a signed byte where the words' bit is set, 0 elsewhere, except
+    in the last case."""
+    rng = np.random.default_rng(100 + NEW_CASES.index(name))
+    if name.startswith("n=32*"):
+        words = _zero_group_words(rng, int(name[5:].split(",")[0]))
+    elif name.startswith("all-zero"):
+        words = np.zeros(1024, np.uint32)
+    else:
+        words = rng.integers(0, 2**32, 2048, dtype=np.uint32)
+    n = 32 * len(words)
+    a = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    b = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    if name.startswith("every byte"):
+        # byte j of 16-B load s is (s + 37 j) mod 256
+        s, j = np.arange(n // 16)[:, None], np.arange(16)[None, :]
+        mask = ((s + 37 * j) % 256).astype(np.uint8).view(np.int8)
+        return words, mask.reshape(-1), a, b
+    vals = rng.integers(-128, 128, n)
+    vals[vals == 0] = 1
+    return words, np.where(_mask_of(words) != 0, vals, 0).astype(np.int8), a, b
+
+
+@pytest.mark.parametrize("case", NEW_CASES)
+def test_plain_bodies_equal_numpy_on_the_kernels_new_paths(case):
+    words, mask, a, b = _new_case(case)
+    got3 = qv.q6_words_i32(_t(words.view(np.int32)), _t(a), _t(b))
+    np.testing.assert_array_equal(got3.numpy(), _oracle(_mask_of(words), a, b))
+    got4 = qv.q6_mask8_i32(_t(mask), _t(a), _t(b))
+    np.testing.assert_array_equal(got4.numpy(), _oracle(mask, a, b))
+
+
+def _views(case):
+    """(label, K3 or K4, selector view, a view, b view) over one stack."""
+    words, _, a, b = _new_case("n=32*1001, zero 4-row groups")
+    n = len(a)
+    tw = _t(np.stack([words, words[::-1]]).view(np.int32))
+    tm = _t(np.random.default_rng(9).integers(-128, 128, (2, n))
+            .astype(np.int8))
+    ta, tb = _t(a), _t(b)
+    # a word holds 128 B of each payload: words[k:] keeps a[32 k:] aligned
+    return {"words[1:], a[32:], b[32:]": ("K3", tw[0, 1:], ta[32:], tb[32:]),
+            "words[3:], a[96:], b[96:]": ("K3", tw[0, 3:], ta[96:], tb[96:]),
+            "mask[16:], a[16:], b[16:]": ("K4", tm[0, 16:], ta[16:], tb[16:]),
+            "mask[48:], a[48:], b[48:]": ("K4", tm[0, 48:], ta[48:], tb[48:]),
+            "row 1 of a words stack": ("K3", tw[1], ta, tb),
+            "row 1 of a mask stack": ("K4", tm[1], ta, tb),
+            # off a 16-B boundary: refused
+            "a[1:33]": ("K3", tw[0, :1], ta[1:33], tb[:32]),
+            "b[2:34]": ("K3", tw[0, :1], ta[:32], tb[2:34]),
+            "mask[4:], a[4:], b[4:]": ("K4", tm[0, 4:], ta[4:], tb[4:]),
+            "a[3:]": ("K4", tm[0, :n - 3], ta[3:], tb[:n - 3])}[case]
+
+
+TAKEN = ["words[1:], a[32:], b[32:]", "words[3:], a[96:], b[96:]",
+         "mask[16:], a[16:], b[16:]", "mask[48:], a[48:], b[48:]",
+         "row 1 of a words stack", "row 1 of a mask stack"]
+REFUSED = ["a[1:33]", "b[2:34]", "mask[4:], a[4:], b[4:]", "a[3:]"]
+
+
+def _oracle_of(kind, sel, a, b):
+    m = _mask_of(sel.numpy().view(np.uint32)) if kind == "K3" else sel.numpy()
+    return _oracle(m, a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("view", TAKEN)
+def test_wrappers_take_views_on_a_16B_boundary(view):
+    kind, sel, a, b = _views(view)
+    fn = qv.q6_words_i32 if kind == "K3" else qv.q6_mask8_i32
+    np.testing.assert_array_equal(fn(sel, a, b).numpy(),
+                                  _oracle_of(kind, sel, a, b))
+
+
+@pytest.mark.parametrize("view", REFUSED)
+def test_wrappers_refuse_views_off_a_16B_boundary(view):
+    """The kernels load 16 B at a time; the wrapper refuses before any
+    launch, on the CPU as on the card."""
+    kind, sel, a, b = _views(view)
+    fn = qv.q6_words_i32 if kind == "K3" else qv.q6_mask8_i32
+    with pytest.raises(ValueError, match="16-B boundary"):
+        fn(sel, a, b)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -197,3 +312,27 @@ def test_cuda_kernels_match_plain_bodies(cuda_device, case):
         (before[0] + 1, before[1] + 1)
     assert torch.equal(got3, qv.q6_words_i32_reference(tw, ta, tb))
     assert torch.equal(got4, qv.q6_mask8_i32_reference(tm, ta, tb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NEW_CASES)
+def test_cuda_kernels_match_plain_bodies_on_new_paths(cuda_device, case):
+    words, mask, a, b = _new_case(case)
+    tw = _t(words.view(np.int32)).to(cuda_device)
+    tm = _t(mask).to(cuda_device)
+    ta, tb = _t(a).to(cuda_device), _t(b).to(cuda_device)
+    # twice: each launch must leave the kernels' scratch zero
+    for _ in range(2):
+        got3, got4 = qv.q6_words_i32(tw, ta, tb), qv.q6_mask8_i32(tm, ta, tb)
+        assert torch.equal(got3, qv.q6_words_i32_reference(tw, ta, tb))
+        assert torch.equal(got4, qv.q6_mask8_i32_reference(tm, ta, tb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", TAKEN)
+def test_cuda_kernels_take_views_on_a_16B_boundary(cuda_device, view):
+    kind, sel, a, b = (t.to(cuda_device) if isinstance(t, torch.Tensor)
+                       else t for t in _views(view))
+    fn, plain = ((qv.q6_words_i32, qv.q6_words_i32_reference) if kind == "K3"
+                 else (qv.q6_mask8_i32, qv.q6_mask8_i32_reference))
+    assert torch.equal(fn(sel, a, b), plain(sel, a, b))

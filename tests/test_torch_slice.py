@@ -171,6 +171,26 @@ def test_connection_refuses_a_catalog_on_another_device(port_conns):
         Connection(port_conns["generated"].catalog, device="meta")
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """connect, Connection and load_catalog run on "cuda" unless the caller
+    asks for the CPU; read here without a card and without a launch."""
+    import inspect
+
+    import torch
+
+    from duckdb_cubit_tpu_torch.storage.table import Catalog
+    from duckdb_cubit_tpu_torch.tpch import load
+
+    for fn in (connect, Connection.__init__, load.load_catalog):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    asked = []
+    monkeypatch.setattr(load, "load_catalog",
+                        lambda sf, *, device: asked.append((sf, device))
+                        or Catalog())
+    assert connect(0.01).device == torch.device("cuda")
+    assert asked == [(0.01, torch.device("cuda"))]
+
+
 def test_tensors_on_the_requested_device(port_conns):
     for t in port_conns["generated"].catalog.tables.values():
         assert all(c.data.device.type == "cpu" for c in t.columns.values())
