@@ -30,11 +30,16 @@ raises on failure (non-zero exit):
      mask, zero 4-row groups beside nonzero ones, every byte value at every
      position of K4's 16-B mask loads, the views the wrapper takes
      (`words[k:]` with `a[32 k:]`, `mask[16 k:]` with `a[16 k:]`, rows of
-     a stack) and one it refuses.  K5a on tables of 8192, 37 and 12288 entries,
-     1-D and (N/128, 128) shapes, indices 0 and T-1, a ragged length and
-     indices out of range (the count must match); K5b on 64 and 3 table
-     rows, row counts that are and are not multiples of them, and bad lane
-     indices;
+     a stack) and one it refuses.  K5a and K5b twice per case (the second
+     call finds the scratch the first left).  K5a on tables of 1, 37, 8192
+     and 12288 entries (one a view off a 16-B boundary), 1-D and (N/128,
+     128) shapes, indices 0 and T-1, ragged lengths, indices out of range
+     (the count must match), views 4, 8 and 12 B off a boundary, n = 1, 3,
+     5, 127, 129 and a bad index at each position of a 16-B load; K5b on 1,
+     3, 7, 64 and 100 table rows (100 takes the plain kernel), row counts
+     that are and are not multiples of them and of the grid's warps, bad
+     lane indices at each position of a 16-B load, and indices and a table
+     4 B off a boundary;
   4. main path: connect(sf, device="cuda"), every table / index tensor on the
      card.  Q6 (and an off-bin-edge variant), Q1, Q12 and Q3 through
      conn.sql() against numpy oracles on the generated columns (Q6 also
@@ -59,7 +64,10 @@ raises on failure (non-zero exit):
      L2 flushed: their fixed cost beside their time at variant 0, and that
      time after a flush that leaves the L2 clean),
      `benchmarks.gather_probe` (N = 2**22, T = 2**13; K5a
-     and K5b must launch) and `bench` (32 Q6 variants and the l_orderkey ->
+     and K5b must launch; then K5a on 128 indices and K5b on one row, L2
+     flushed: their fixed cost, beside one torch kernel on one element, and
+     their time at N = 2**22 after a clean-L2 flush) and `bench` (32 Q6
+     variants and the l_orderkey ->
      orders probes; K1 and K2 must launch).  Each checks its own results
      and prints its times.
 
@@ -692,53 +700,122 @@ def _gather_err(label: str, got, want) -> int:
 
 
 def k5_parity(device) -> tuple[int, int]:
-    """K5a and K5b against their plain bodies: -> (K5a err, K5b err)."""
+    """K5a and K5b against their plain bodies, each case called twice (the
+    second call finds the scratch the first left): -> (K5a err, K5b err)."""
     from duckdb_cubit_tpu_torch.ops import gather_forms as gf
 
     rng = np.random.default_rng(4)
+    err = {"K5a": 0, "K5b": 0}
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    k5a_err = 0
-    for t, n in ((8192, 1_000_003), (37, 70_001), (gf.MAX_TABLE, 1 << 22)):
-        tab = rng.integers(-2**31, 2**31, t).astype(np.int32)
+    def check(kernel, label, tab, idx, bad=None):
+        fn, plain = {"K5a": (gf.table_gather, gf.table_gather_reference),
+                     "K5b": (gf.lane_gather, gf.lane_gather_reference)}[kernel]
+        for call in (1, 2):
+            got = fn(tab, idx)
+            err[kernel] = max(err[kernel], _gather_err(
+                f"{kernel} {label} (call {call})", got, plain(tab, idx)))
+            if bad is not None and int(got[1]) != bad:
+                raise AssertionError(f"{kernel} counted {int(got[1])} bad "
+                                     f"indices, expected {bad} ({label})")
+
+    def table(t):
+        return dev(rng.integers(-2**31, 2**31, t).astype(np.int32))
+
+    for t, n in ((8192, 1_000_003), (37, 70_001), (gf.MAX_TABLE, 1 << 22),
+                 (1, 4099)):
         idx = rng.integers(0, t, n).astype(np.int32)
         idx[:2] = (0, t - 1)
         idx[-2:] = (t - 1, 0)
-        k5a_err = max(k5a_err, _gather_err(
-            f"K5a T={t} 1-D", gf.table_gather(dev(tab), dev(idx)),
-            gf.table_gather_reference(dev(tab), dev(idx))))
+        check("K5a", f"T={t} 1-D", table(t), dev(idx), 0)
     tab2 = dev(rng.integers(-2**31, 2**31, (64, 128)).astype(np.int32))
-    idx2 = dev(rng.integers(0, 8192, (1 << 15, 128)).astype(np.int32))
-    k5a_err = max(k5a_err, _gather_err(
-        "K5a T=8192 (64, 128) table, (2**15, 128) indices",
-        gf.table_gather(tab2, idx2), gf.table_gather_reference(tab2, idx2)))
+    check("K5a", "T=8192 (64, 128) table, (2**15, 128) indices", tab2,
+          dev(rng.integers(0, 8192, (1 << 15, 128)).astype(np.int32)), 0)
     idx = rng.integers(0, 8192, 100_000).astype(np.int32)
     idx[[5, 500, 99_999]] = (-1, 8192, -2**31)
-    got = gf.table_gather(tab2, dev(idx))
-    k5a_err = max(k5a_err, _gather_err(
-        "K5a three indices out of range", got,
-        gf.table_gather_reference(tab2, dev(idx))))
-    if int(got[1]) != 3:
-        raise AssertionError("K5a did not count the bad indices")
+    check("K5a", "three indices out of range", tab2, dev(idx), 3)
+    # the paths of the Hopper design: views 4, 8 and 12 B off a 16-B
+    # boundary (scalar head), lengths that fill no int4 or one and a bit
+    # (scalar tail), a bad index at each position of a 16-B load, a table
+    # that is itself a view off a boundary (copied entry by entry)
+    tab = table(8192)
+    base = rng.integers(0, 8192, 1_000_003).astype(np.int32)
+    idx = dev(base)
+    for off in (1, 2, 3):
+        check("K5a", f"idx[{off}:]", tab, idx[off:], 0)
+    for n in (1, 3, 5, 127, 129):
+        check("K5a", f"n={n}", tab, idx[:n], 0)
+        check("K5a", f"n={n} from idx[1:]", tab, idx[1:n + 1], 0)
+    worst = base.copy()
+    worst[[4000, 4101, 4202, 4303]] = (8192, -1, 9000, -2**31)
+    worst_idx = dev(worst)
+    check("K5a", "a bad index at each position of an int4", tab, worst_idx,
+          4)
+    check("K5a", "the same from idx[1:]", tab, worst_idx[1:], 4)
+    big = table(gf.MAX_TABLE + 1)
+    check("K5a", "T=MAX_TABLE from tab[1:] (16-B misaligned table)",
+          big[1:], dev(rng.integers(0, gf.MAX_TABLE, 333_333)
+                       .astype(np.int32)), 0)
 
-    k5b_err = 0
-    for rows, r in ((64, 1 << 15), (64, 1001), (3, 1 << 12)):
+    # K5b: rows that divide the grid's warp count (64) and rows that do
+    # not (1 divides everything; 3, 7 and 100 do not divide 132 * 32), R a
+    # multiple of no warp count; 100 rows (51 KB) take the plain kernel
+    for rows, r in ((64, 1 << 15), (64, 1001), (3, 1 << 12), (1, 999),
+                    (3, 1001), (7, 999), (7, 8453), (64, 4224 * 2 + 77),
+                    (100, 1001)):
         tab = dev(rng.integers(-2**31, 2**31, (rows, 128)).astype(np.int32))
         li = dev(rng.integers(0, 128, (r, 128)).astype(np.int32))
-        k5b_err = max(k5b_err, _gather_err(
-            f"K5b rows={rows} R={r}", gf.lane_gather(tab, li),
-            gf.lane_gather_reference(tab, li)))
+        check("K5b", f"rows={rows} R={r}", tab, li, 0)
+    check("K5b", "rows=7 R=1", tab[:7], li[:1], 0)
     li = rng.integers(0, 128, (999, 128)).astype(np.int32)
     li[[0, 10, 998], [0, 127, 64]] = (128, -1, 1000)
-    got = gf.lane_gather(tab, dev(li))
-    k5b_err = max(k5b_err, _gather_err(
-        "K5b three lane indices out of range", got,
-        gf.lane_gather_reference(tab, dev(li))))
-    if int(got[1]) != 3:
-        raise AssertionError("K5b did not count the bad lane indices")
-    return k5a_err, k5b_err
+    tab = tab[:64]
+    check("K5b", "three lane indices out of range", tab, dev(li), 3)
+    li[500, 40:44] = (128, -1, 1 << 30, -2**31)
+    check("K5b", "a bad lane index at each position of an int4", tab,
+          dev(li), 7)
+    # lane indices and a table 4 B off a 16-B boundary: the plain kernel
+    flat = dev(rng.integers(0, 128, 1001 * 128 + 1).astype(np.int32))
+    tflat = dev(rng.integers(-2**31, 2**31, 3 * 128 + 1).astype(np.int32))
+    check("K5b", "lane_idx and tab 4 B off a boundary, rows=3 R=1001",
+          tflat[1:].view(3, 128), flat[1:].view(1001, 128), 0)
+    return err["K5a"], err["K5b"]
+
+
+def k5_fixed_cost(device, card) -> tuple[dict, dict]:
+    """K5a on 128 indices and K5b on one row, L2 flushed: the launch, the
+    table copy and the finish, so gather_probe's time splits into that
+    fixed cost and streaming; and each at gather_probe's shapes after a
+    flush that leaves the L2 clean.  -> ({name: fixed ms}, {name: clean-L2
+    ms})."""
+    from duckdb_cubit_tpu_torch.benchmarks import gather_probe
+    from duckdb_cubit_tpu_torch.ops import gather_forms as gf
+
+    idx, table, li2 = gather_probe.inputs(gather_probe.N, gather_probe.T,
+                                          device)
+    tab2 = table.reshape(-1, gf.LANES)
+    flush = flush_buffer(device)
+    fixed = {"table_gather": time_cold(
+                 lambda: gf.table_gather(table, idx[:128]), 30, flush),
+             "lane_gather": time_cold(
+                 lambda: gf.lane_gather(tab2, li2[:1]), 30, flush)}
+    clean = {"table_gather": time_cold(
+                 lambda: gf.table_gather(table, idx), 30, flush, True),
+             "lane_gather": time_cold(
+                 lambda: gf.lane_gather(tab2, li2), 30, flush, True)}
+    # the floor of this reading: one torch kernel on one element
+    one = torch.zeros(1, device=device)
+    floor = time_cold(lambda: one.add_(1), 30, flush)
+    for name, label in (("table_gather", "K5a on 128 indices"),
+                        ("lane_gather", "K5b on one 128-wide row")):
+        print(f"{label} {fixed[name]:.4f} ms (L2 flushed: launch, the "
+              f"{4 * gather_probe.T} B table copy, the finish; one torch "
+              f"kernel on one element reads {floor:.4f} ms); at N="
+              f"{gather_probe.N} after a flush that leaves the L2 clean "
+              f"{clean[name]:.4f} ms  [{card}]")
+    return fixed, clean
 
 
 def k3k4_fixed_cost(catalog, device, summary, times, card) -> tuple:
@@ -1053,6 +1130,9 @@ def main() -> int:
         times[name] = summary["kernels"][name]
         bounds[name] = bound_ms(summary["bytes"][name])
         library[name] = summary["library_ms"][name]
+    k5_fixed, k5_clean = k5_fixed_cost(device, card)
+    fixed.update(k5_fixed)
+    clean.update(k5_clean)
     phase("entry point: bench")
     line, counts = counted(lambda: bench.run(cat, device, args.sf),
                            "fused_scan_sum", "monotone_gather")

@@ -51,8 +51,7 @@
 //  - The 16-B loads need `mask`, `a` and `b` 16-B aligned; the launcher
 //    refuses other pointers (the wrapper checks first and raises).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "device_common.cuh"
 
 namespace {
 
@@ -67,26 +66,6 @@ __device__ __forceinline__ uint32_t pick(uint32_t v0, uint32_t v1,
   const uint32_t lo = i & 1 ? v1 : v0;
   const uint32_t hi = i & 1 ? v3 : v2;
   return i & 2 ? hi : lo;
-}
-
-// An L2 policy that makes the lines a load brings in the first to evict.
-// The payloads are read once, so they should not push out what else the
-// L2 holds: lines that other work left dirty would otherwise be written
-// back during this kernel, on the memory it streams from.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-      : "=l"(policy));
-  return policy;
-}
-
-// 16 B through the read-only path, under `policy`
-__device__ __forceinline__ int4 load_once(const int4* p, uint64_t policy) {
-  int4 v;
-  asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "l"(policy));
-  return v;
 }
 
 // the products of 4 rows, row j multiplied by the signed byte j of `m`

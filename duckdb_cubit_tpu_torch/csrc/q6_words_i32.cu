@@ -48,8 +48,7 @@
 //  - The 16-B loads need `a` and `b` 16-B aligned; the launcher refuses
 //    other pointers (the wrapper checks first and raises).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "device_common.cuh"
 
 namespace {
 
@@ -59,26 +58,6 @@ constexpr int kTile = 32;        // words a warp takes at once, one per lane
 constexpr int kStepWords = 4;    // words a warp step covers: 4 rows a lane
 constexpr int kSteps = kTile / kStepWords;
 constexpr int kInFlight = 4;     // steps whose loads are issued together
-
-// An L2 policy that makes the lines a load brings in the first to evict.
-// The payloads are read once, so they should not push out what else the
-// L2 holds: lines that other work left dirty would otherwise be written
-// back during this kernel, on the memory it streams from.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-      : "=l"(policy));
-  return policy;
-}
-
-// 16 B through the read-only path, under `policy`
-__device__ __forceinline__ int4 load_once(const int4* p, uint64_t policy) {
-  int4 v;
-  asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "l"(policy));
-  return v;
-}
 
 // lane's word of tile t (0 past the last word)
 __device__ __forceinline__ uint32_t tile_word(const uint32_t* words,

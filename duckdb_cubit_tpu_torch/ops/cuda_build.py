@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each kernel is one source under `csrc/` with a plain C entry point.  At first
-use on the card, `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`
-compiles it into its own library in the git-ignored `_build/` (again only
-when the source is newer than the library), and ctypes binds the entry
+Each kernel is one source under `csrc/` with a plain C entry point (device
+helpers the kernels share sit in `csrc/*.cuh`).  At first use on the card,
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` compiles it into
+its own library in the git-ignored `_build/` (again only when the source or
+a shared header is newer than the library), and ctypes binds the entry
 point.  Nothing here runs when a module is imported: the CPU tests import
 every module on a machine without nvcc.
 """
@@ -11,6 +12,7 @@ every module on a machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -57,10 +59,12 @@ class CudaKernel:
         self._lock = threading.Lock()
 
     def build(self) -> str:
-        """Compile the library if it is missing or older than its source;
-        -> its path.  Raises if nvcc fails."""
+        """Compile the library if it is missing or older than its source or
+        a shared header; -> its path.  Raises if nvcc fails."""
+        headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+        newest = max(os.path.getmtime(p) for p in [self.source, *headers])
         if os.path.exists(self.lib_path) and \
-                os.path.getmtime(self.lib_path) >= os.path.getmtime(self.source):
+                os.path.getmtime(self.lib_path) >= newest:
             return self.lib_path
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -114,6 +118,25 @@ def _raw_stream(index: int) -> int:
     launch, so a caller's `torch.cuda.stream(...)` context is honoured
     (a handle cached per device would not see it)."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+# (card, stream handle) -> the kernels' (2,) int64 scratch on that stream:
+# zero when made, and each launch that uses it leaves it zero again, so
+# launches on one stream (which run in turn) share it and no launch needs a
+# memset or a fill first
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def stream_scratch(device: torch.device) -> torch.Tensor:
+    """The self-resetting scratch of the current stream of `device` (K3 and
+    K4 use both words, K5a and K5b the first)."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = _SCRATCH[key] = torch.zeros(2, dtype=torch.int64,
+                                              device=device)
+    return scratch
 
 
 # card index -> multiprocessor count: a fixed property, asked once a card

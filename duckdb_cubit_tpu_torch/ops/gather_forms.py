@@ -19,7 +19,13 @@ the kernels never read out of bounds, and a caller checks `bad == 0` as it
 checks K2's overflow.  Each wrapper has two bodies, chosen only by the
 tensors' device: CUDA tensors launch the hand-written kernel
 (`csrc/table_gather.cu`, `csrc/lane_gather.cu`) or raise; CPU tensors run
-the plain torch body (`*_reference`).
+the plain torch body (`*_reference`).  On the card nothing is filled
+before a launch: `out` and `bad` come from `torch.empty` and the kernel
+writes both, counting its blocks in the stream's self-resetting scratch
+(`cuda_build.stream_scratch`).  The kernels load and store 16 B at a time,
+so `out` is allocated at the same offset from a 16-B boundary as the
+indices (`out_like`): a view such as `idx[1:]` takes the int4 path after
+its first 1-3 indices.
 """
 
 from __future__ import annotations
@@ -28,15 +34,16 @@ import ctypes
 
 import torch
 
-from .cuda_build import CudaKernel, sm_count
+from .cuda_build import CudaKernel, sm_count, stream_scratch
 
-# int32 entries of the largest table: 48 KB, static shared memory
+# int32 entries of the largest table: 48 KB, the shared memory a block
+# gets without opting in to more
 MAX_TABLE = 48 * 1024 // 4
 LANES = 128
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 TABLE_KERNEL = CudaKernel("table_gather.cu", "table_gather_launch",
                           _ARGTYPES)
 LANE_KERNEL = CudaKernel("lane_gather.cu", "lane_gather_launch", _ARGTYPES)
@@ -95,16 +102,27 @@ def lane_gather_reference(tab2, lane_idx):
     return out, bad.sum().to(torch.int32)
 
 
+def out_like(idx: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor shaped like `idx` that starts at the same
+    offset from a 16-B boundary as `idx` (a view into a buffer up to 3
+    entries longer), so the kernels' int4 loads and stores line up."""
+    shift = idx.data_ptr() % 16 // idx.element_size()
+    buf = torch.empty(idx.numel() + shift, dtype=idx.dtype, device=idx.device)
+    return buf[shift:].view(idx.shape)
+
+
 def _device_body(kernel, table, table_size, idx, n):
     """Launch `kernel` on the card: -> (out shaped like idx, bad)."""
-    if idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx.device}")
-    out = torch.empty_like(idx)
-    bad = torch.zeros((), dtype=torch.int32, device=idx.device)
-    if n:
-        kernel.launch(idx.device, table.data_ptr(), table_size,
-                      idx.data_ptr(), n, out.data_ptr(), bad.data_ptr(),
-                      sm_count(idx.device))
+    device = idx.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = out_like(idx)
+    if not n:
+        return out, torch.zeros((), dtype=torch.int32, device=device)
+    bad = torch.empty((), dtype=torch.int32, device=device)
+    kernel.launch(device, table.data_ptr(), table_size, idx.data_ptr(), n,
+                  out.data_ptr(), stream_scratch(device).data_ptr(),
+                  bad.data_ptr(), sm_count(device))
     return out, bad
 
 

@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from . import bitmap as bm
-from .cuda_build import CudaKernel, sm_count
+from .cuda_build import CudaKernel, sm_count, stream_scratch
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -47,21 +47,6 @@ MASK8_KERNEL = CudaKernel("q6_mask8_i32.cu", "q6_mask8_i32_launch",
 # launches of each CUDA kernel (never counts the plain bodies)
 words_launch_count = 0
 mask8_launch_count = 0
-
-# (card, stream handle) -> the kernels' (2,) int64 scratch on that stream:
-# zero when made, and each launch leaves it zero again, so launches on one
-# stream (which run in turn) share it and no launch needs a memset first
-_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _scratch(device: torch.device) -> torch.Tensor:
-    stream = torch.cuda.current_stream(device)
-    key = (stream.device_index, stream.cuda_stream)
-    scratch = _SCRATCH.get(key)
-    if scratch is None:
-        scratch = _SCRATCH[key] = torch.zeros(2, dtype=torch.int64,
-                                              device=device)
-    return scratch
 
 
 def _wrap(x: torch.Tensor) -> torch.Tensor:
@@ -137,7 +122,7 @@ def _device_body(kernel, selector, a, b, n) -> torch.Tensor:
         return torch.zeros(2, dtype=torch.int32, device=device)
     out = torch.empty(2, dtype=torch.int32, device=device)
     kernel.launch(device, selector.data_ptr(), a.data_ptr(), b.data_ptr(), n,
-                  _scratch(device).data_ptr(), out.data_ptr(),
+                  stream_scratch(device).data_ptr(), out.data_ptr(),
                   sm_count(device))
     return out
 

@@ -162,3 +162,115 @@ def test_cuda_kernels_match_plain_bodies(cuda_device, t):
     for got, want in ((got_a, gf.table_gather_reference(table, idx)),
                       (got_b, gf.lane_gather_reference(tab2, li2))):
         assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+
+
+# The Hopper design's paths, on the plain bodies here (tolerance 0 against
+# numpy) and on the kernels where there is a card: the scratch that `bad`
+# is counted in is left zero by every launch, views off a 16-B boundary
+# take a scalar head, lengths that are no multiple of 4 a scalar tail, and
+# K5b's rows need not divide the row count.
+
+def _numpy_table_gather(tab, idx):
+    flat = tab.reshape(-1)
+    ok = (idx >= 0) & (idx < flat.size)
+    return np.where(ok, flat[np.where(ok, idx, 0)], 0), int((~ok).sum())
+
+
+def _numpy_lane_gather(tab2, li):
+    ok = (li >= 0) & (li < gf.LANES)
+    rows = np.arange(li.shape[0])[:, None] % tab2.shape[0]
+    return np.where(ok, tab2[rows, np.where(ok, li, 0)], 0), int((~ok).sum())
+
+
+@pytest.mark.parametrize("fn", ["table", "lane"])
+def test_bad_count_is_right_on_repeated_calls(fn):
+    rng = np.random.default_rng(5)
+    tab2 = rng.integers(-2**31, 2**31, (64, 128)).astype(np.int32)
+    if fn == "table":
+        idx = rng.integers(0, 8192, 4099).astype(np.int32)
+        idx[[1, 2, 3, 4]] = (8192, -1, 1 << 30, -2**31)
+        call, oracle = gf.table_gather, _numpy_table_gather
+    else:
+        idx = rng.integers(0, 128, (33, 128)).astype(np.int32)
+        idx[5, 4:8] = (128, -1, 1 << 30, -2**31)
+        call, oracle = gf.lane_gather, _numpy_lane_gather
+    clean = np.where((idx >= 0) & (idx < (8192 if fn == "table" else 128)),
+                     idx, 0)
+    for case in (idx, idx, clean, idx):
+        out, bad = call(torch.as_tensor(tab2), torch.as_tensor(case))
+        want, want_bad = oracle(tab2, case)
+        assert int(bad) == want_bad
+        np.testing.assert_array_equal(out.numpy(), want)
+    assert oracle(tab2, idx)[1] == 4
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 127, 129, 1001])
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_table_gather_views_off_a_16b_boundary(off, n):
+    rng = np.random.default_rng(off * 1000 + n)
+    tab = rng.integers(-2**31, 2**31, 8192).astype(np.int32)
+    base = torch.as_tensor(rng.integers(0, 8192, n + 3).astype(np.int32))
+    view = base[off:off + n]
+    assert view.data_ptr() % 16 == 4 * off % 16
+    out, bad = gf.table_gather(torch.as_tensor(tab), view)
+    want, want_bad = _numpy_table_gather(tab, view.numpy())
+    assert int(bad) == want_bad == 0
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_out_like_starts_where_the_indices_do(off):
+    """The kernels' int4 stores line up with their int4 index loads: the
+    wrapper's output starts at the indices' offset from a 16-B boundary."""
+    base = torch.arange(1003, dtype=torch.int32)
+    view = base[off:off + 999]
+    out = gf.out_like(view)
+    assert out.shape == view.shape and out.dtype == view.dtype
+    assert out.is_contiguous()
+    assert out.data_ptr() % 16 == view.data_ptr() % 16
+
+
+@pytest.mark.parametrize("r", [1, 999, 1001])
+@pytest.mark.parametrize("rows", [3, 7])
+def test_lane_gather_rows_that_do_not_divide_the_row_count(rows, r):
+    rng = np.random.default_rng(rows * 10_000 + r)
+    tab2 = rng.integers(-2**31, 2**31, (rows, 128)).astype(np.int32)
+    li = rng.integers(0, 128, (r, 128)).astype(np.int32)
+    out, bad = gf.lane_gather(torch.as_tensor(tab2), torch.as_tensor(li))
+    want, want_bad = _numpy_lane_gather(tab2, li)
+    assert int(bad) == want_bad == 0
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 5, 127, 129, 1_000_003])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_cuda_table_gather_views_and_lengths(cuda_device, off, n):
+    rng = np.random.default_rng(off * 1000 + n)
+    tab = torch.as_tensor(rng.integers(-2**31, 2**31, 8192).astype(np.int32),
+                          device=cuda_device)
+    idx = rng.integers(0, 8192, n + 3).astype(np.int32)
+    idx[off] = -1
+    view = torch.as_tensor(idx, device=cuda_device)[off:off + n]
+    for _ in range(2):
+        out, bad = gf.table_gather(tab, view)
+        want, want_bad = gf.table_gather_reference(tab, view)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and int(bad) == int(want_bad) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 999, 1001])
+@pytest.mark.parametrize("rows", [1, 3, 7, 64])
+def test_cuda_lane_gather_row_shapes(cuda_device, rows, r):
+    rng = np.random.default_rng(rows * 10_000 + r)
+    tab2 = torch.as_tensor(rng.integers(-2**31, 2**31, (rows, 128))
+                           .astype(np.int32), device=cuda_device)
+    li = rng.integers(0, 128, (r, 128)).astype(np.int32)
+    li[r // 2, :4] = (128, -1, 1 << 30, -2**31)
+    li = torch.as_tensor(li, device=cuda_device)
+    for _ in range(2):
+        out, bad = gf.lane_gather(tab2, li)
+        want, want_bad = gf.lane_gather_reference(tab2, li)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and int(bad) == int(want_bad) == 4

@@ -9,7 +9,15 @@ DOUBLE cells, which get the 1e-9 relative tolerance of
 different orders).  Each query also runs over the catalog carried from the
 reference (`from_reference_catalog`).  On the CPU the kernel branch of the
 PK probe runs K2's plain body; a counter on the wrapper shows it ran.
+
+The tests that count calls or read the prepare cache do not depend on
+what ran before them in the same process: they run on a catalog of their
+own (`load_catalog(..., cache=False)`: its tables have uids no other
+connection shares, so no prepare-cache entry made elsewhere matches), each
+with an empty `Executor._prepare_cache`.
 """
+
+from collections import OrderedDict
 
 import pytest
 
@@ -19,7 +27,8 @@ from duckdb_cubit_tpu_torch.api import Connection, connect
 from duckdb_cubit_tpu_torch.exec.executor import Executor
 from duckdb_cubit_tpu_torch.ops import fused_scan as fs
 from duckdb_cubit_tpu_torch.ops import probe
-from duckdb_cubit_tpu_torch.tpch.load import from_reference_catalog
+from duckdb_cubit_tpu_torch.tpch.load import (from_reference_catalog,
+                                              load_catalog)
 
 Q1 = """
     SELECT l_returnflag, l_linestatus,
@@ -227,6 +236,20 @@ def test_tpch_answers_at_sf001(port_conns):
     assert q1[0][9] == "14876"
 
 
+@pytest.fixture(scope="module")
+def own_conn():
+    """A connection on a catalog no other connection shares (uncached)."""
+    return Connection(load_catalog(0.01, device="cpu", cache=False),
+                      device="cpu")
+
+
+@pytest.fixture
+def counting_conn(own_conn, monkeypatch):
+    """`own_conn` with an empty prepare cache of the test's own."""
+    monkeypatch.setattr(Executor, "_prepare_cache", OrderedDict())
+    return own_conn
+
+
 @pytest.fixture
 def gather_calls(monkeypatch):
     """The lut count of each call of the many-lut gather wrapper by the
@@ -244,13 +267,13 @@ def gather_calls(monkeypatch):
 @pytest.mark.parametrize("name,least", [("q12", 2), ("q3", 1),
                                         ("join_group_doubles", 2),
                                         ("left_pk_join", 2)])
-def test_kernel_branch_of_the_pk_probe_runs(port_conns, gather_calls, name,
-                                            least):
+def test_kernel_branch_of_the_pk_probe_runs(counting_conn, gather_calls,
+                                            name, least):
     """Sorted l_orderkey probes take the kernel branch of _pk_probe and fetch
     build values through value luts in the same pass: each join makes one
     call with the row lut and every value lut it reads; Q12 makes one call
     with 2 luts (the row, and o_orderpriority)."""
-    port_conns["generated"].sql(QUERIES[name]).strings()
+    counting_conn.sql(QUERIES[name]).strings()
     assert len(gather_calls) == 1
     assert gather_calls[0] >= least
     if name == "q12":
@@ -259,23 +282,22 @@ def test_kernel_branch_of_the_pk_probe_runs(port_conns, gather_calls, name,
 
 @pytest.mark.parametrize("name,luts", [("q12", [2]), ("q3", [4]),
                                        ("semi_join_pk", [1])])
-def test_one_gather_call_per_pk_join(ref_rows, port_conns, gather_calls,
+def test_one_gather_call_per_pk_join(ref_rows, counting_conn, gather_calls,
                                      name, luts):
     """Q12's join fetches its row and o_orderpriority in one call; Q3's
     lineitem -> orders join its row, o_orderdate, o_shippriority and
     o_custkey; a semi join the row alone.  The rows equal the
     reference's."""
-    _assert_rows_match(port_conns["generated"].sql(QUERIES[name]),
-                       ref_rows(name))
+    _assert_rows_match(counting_conn.sql(QUERIES[name]), ref_rows(name))
     assert gather_calls == luts
 
 
-def test_overflow_retries_on_the_plain_path(ref_rows, port_conns,
+def test_overflow_retries_on_the_plain_path(ref_rows, counting_conn,
                                             monkeypatch):
     """An overflow reported once still gives Q12's rows: the executor sets
     _no_kernel_probe on the join, which changes its signature (a new
     prepare-cache entry), and runs the query again on the plain lut."""
-    conn = port_conns["generated"]
+    conn = counting_conn
     real = probe.monotone_gather_many
     seen = []
 
@@ -298,8 +320,8 @@ def test_overflow_retries_on_the_plain_path(ref_rows, port_conns,
     assert join.signature() != flipped
 
 
-def test_unrecoverable_check_raises(port_conns, monkeypatch):
-    conn = port_conns["generated"]
+def test_unrecoverable_check_raises(counting_conn, monkeypatch):
+    conn = counting_conn
     monkeypatch.setattr(Executor, "_handle_failed_checks",
                         staticmethod(lambda failed, ops: False))
     real = probe.monotone_gather_many
@@ -311,18 +333,16 @@ def test_unrecoverable_check_raises(port_conns, monkeypatch):
 
 
 @pytest.fixture
-def fused_q6(port_conns, monkeypatch):
+def fused_q6(counting_conn, monkeypatch):
     """Q6 on the fused scan-sum path (no row-id decode), with a count of
     pack_columns calls."""
-    conn = port_conns["generated"]
+    conn = counting_conn
     monkeypatch.setattr(conn.config, "index_scan_max_count", 0)
     monkeypatch.setattr(conn.config, "index_scan_percentage", 0.0)
     packs = []
     real = fs.pack_columns
     monkeypatch.setattr(fs, "pack_columns",
                         lambda a, b: packs.append(1) or real(a, b))
-    monkeypatch.setattr(Executor, "_prepare_cache", type(
-        Executor._prepare_cache)())
     return conn, packs
 
 
