@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch + CUDA port: TPC-H Q6, Q1, Q12 and Q3 through
-the public API, then the reference's three benchmark entry points.
+the public API, all 22 TPC-H plan builders, then the reference's three
+benchmark entry points.
 
     python3 chip_smoke.py            # SF1 (6,001,215 lineitem rows)
     python3 chip_smoke.py --sf 10    # SF10
@@ -49,7 +50,22 @@ raises on failure (non-zero exit):
      luts) and once in Q3 (the lineitem -> orders join: the row lut and 3
      value luts).  Each kernel is then compared with its plain version on
      the inputs the main path gave it;
-  5. timing: each query end to end (median of warm runs), the device busy
+  5. TPC-H plans: each of the 22 builders of `tpch/queries.py` through
+     `queries.run(conn.executor, n)` on the card catalog, with the launch
+     counts set to 0 just before it and read just after, held cell by cell
+     (DOUBLE cells within 1e-9, relative) against the port's own run of
+     the same builder on a CPU catalog at the same SF; its K1 and K2
+     launches must equal what the CPU run's wrapper calls would launch (K2
+     launches in q3, q7, q9, q12, q21 and more, K1 in q6).  Per query: the
+     rows (the first five), K2 and K1 launches, `Executor.retry_count`'s
+     rise, the median of warm wall times, and the profiled device time and
+     busy share.  Then six plans over the same two catalogs take the
+     HashJoin paths the 22 do not take: inner expansion with capacity
+     regrows (orders x lineitem), a single-match join on duplicate build
+     keys (the `unique` retry to expansion), FULL OUTER, LEFT with a found
+     column, ANTI on a packed 2-column key and SEMI on a hashed 3-column
+     key, each equal to its CPU run;
+  6. timing: each query end to end (median of warm runs), the device busy
      share of each from torch.profiler with its top device kernels, the
      device time of the PK probe's prelude beside K2's, and each kernel
      alone against its plain version at the main path's shapes with the L2
@@ -57,7 +73,7 @@ raises on failure (non-zero exit):
      and the one PyTorch call that computes the same function, where there
      is one; K2's 2- and 4-lut passes against the one-lut launches they
      replaced;
-  6. entry points, each with every launch count set to 0 just before it
+  7. entry points, each with every launch count set to 0 just before it
      and read just after, on the catalog already loaded:
      `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
      K4 must launch; then K3 on all-zero words and K4 on an all-zero mask,
@@ -71,8 +87,10 @@ raises on failure (non-zero exit):
      orders probes; K1 and K2 must launch).  Each checks its own results
      and prints its times.
 
-The line before the last holds the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+The kernel table is one JSON line (each kernel's `launches` sums the main
+path's runs: the four SQL queries and the 22 plans, split in
+`launches_by_path`), then the card's name and power limit; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -176,6 +194,8 @@ REPLACES = {
 DOUBLE_RTOL = 1e-9
 # warm runs behind each end-to-end and profiled time
 RUNS = 20
+# warm runs behind each TPC-H plan's median
+RUNS_PLANS = 10
 
 
 def phase(name: str):
@@ -364,6 +384,204 @@ def rows_agree(got: list[list], want: list[list]) -> bool:
             elif g != w:
                 return False
     return True
+
+
+def cells_agree(got: list[list], want: list[list], doubles: list) -> bool:
+    """Rows of two runs of one plan, cell by cell: cells of DOUBLE columns
+    within DOUBLE_RTOL of each other, every other cell equal as text."""
+    if len(got) != len(want):
+        return False
+    for g_row, w_row in zip(got, want):
+        for g, w, dbl in zip(g_row, w_row, doubles):
+            if g == w:
+                continue
+            if not dbl or "NULL" in (g, w):
+                return False
+            gf, wf = float(g), float(w)
+            if abs(gf - wf) > DOUBLE_RTOL * max(abs(gf), abs(wf), 1e-300):
+                return False
+    return True
+
+
+def kernel_calls(run) -> tuple:
+    """`run()` with the K1 and K2 wrappers recording their calls (a
+    recording run is not a counted main-path run; on the CPU the wrappers
+    run their plain bodies).  -> (run's result, K1 calls, the (luts, keys)
+    of each K2 call)."""
+    from duckdb_cubit_tpu_torch.ops import fused_scan as fs
+    from duckdb_cubit_tpu_torch.ops import probe
+
+    k1, k2 = [], []
+    real_k1, real_k2 = fs.fused_scan_sum, probe.monotone_gather_many
+
+    def k1_recording(*args):
+        k1.append(1)
+        return real_k1(*args)
+
+    def k2_recording(luts, keys):
+        k2.append((list(luts), keys))
+        return real_k2(luts, keys)
+    fs.fused_scan_sum, probe.monotone_gather_many = k1_recording, k2_recording
+    try:
+        result = run()
+    finally:
+        fs.fused_scan_sum, probe.monotone_gather_many = real_k1, real_k2
+    return result, len(k1), k2
+
+
+def tpch_plans(conn, sf: float, card: str) -> dict:
+    """The 22 TPC-H plan builders on the card, each held against the port's
+    own CPU run of the same builder at the same SF (the reference cannot run
+    on this machine).  Each card run has every launch count set to 0 just
+    before it and read just after; its K1 and K2 launches must equal what
+    the CPU run's calls of the two wrappers would launch (one K2 launch per
+    MAX_LUTS luts of a call): kernel eligibility does not depend on the
+    device.  -> {"launches": {kernel: total}, "queries": [per-query row]}."""
+    from duckdb_cubit_tpu_torch.api import connect
+    from duckdb_cubit_tpu_torch.exec.result import to_strings
+    from duckdb_cubit_tpu_torch.ops.probe import MAX_LUTS
+    from duckdb_cubit_tpu_torch.tpch import queries
+    from duckdb_cubit_tpu_torch.types import TypeId
+
+    t0 = time.perf_counter()
+    cpu = connect(sf=sf, device="cpu")
+    print(f"CPU catalog at SF{sf:g} loaded in {time.perf_counter() - t0:.2f} s")
+    totals = {"fused_scan_sum": 0, "monotone_gather": 0}
+    out = []
+    for n in sorted(queries.QUERIES):
+        def run_card(n=n):
+            rel = queries.run(conn.executor, n)
+            return rel, to_strings(rel)
+        retries = conn.executor.retry_count
+        (rel, rows), counts = counted(run_card)
+        retried = conn.executor.retry_count - retries
+        t1 = time.perf_counter()
+        want, k1_calls, k2_calls = kernel_calls(
+            lambda n=n: to_strings(queries.run(cpu.executor, n)))
+        k2_luts = [len(luts) for luts, _ in k2_calls]
+        cpu_s = time.perf_counter() - t1
+        doubles = [c.dtype.id == TypeId.DOUBLE for c in rel.columns.values()]
+        if not cells_agree(rows, want, doubles):
+            raise AssertionError(f"Q{n} on the card disagrees with the CPU "
+                                 f"run: {rows[:3]} vs {want[:3]}")
+        k2_want = sum(-(-luts // MAX_LUTS) for luts in k2_luts)
+        k1, k2 = counts["fused_scan_sum"], counts["monotone_gather"]
+        if k2 != k2_want or k1 != k1_calls:
+            raise AssertionError(
+                f"Q{n} launched K1 {k1} / K2 {k2} times; its CPU run calls "
+                f"K1 {k1_calls} times and K2 with luts {k2_luts}")
+        totals["fused_scan_sum"] += k1
+        totals["monotone_gather"] += k2
+        times = []
+        for _ in range(RUNS_PLANS + 2):
+            t1 = time.perf_counter()
+            run_card()
+            times.append((time.perf_counter() - t1) * 1e3)
+        median = statistics.median(times[2:])
+        dev_ms, wall_ms, top = device_busy_share(run_card, 3)
+        print(f"Q{n}: {len(rows)} rows, equal to the CPU run ({cpu_s:.2f} s "
+              f"there); K2 launches {k2} (luts per call {k2_luts}), K1 "
+              f"launches {k1}, retries {retried}; median {median:.3f} ms "
+              f"over {RUNS_PLANS} warm runs; profiled: device kernels "
+              f"{dev_ms:.4f} ms of {wall_ms:.4f} ms wall, busy share "
+              f"{dev_ms / wall_ms:.4f}  [{card}]")
+        print(f"  top device kernels per query: {top}")
+        for row in rows[:5]:
+            print("   ", row)
+        if len(rows) > 5:
+            print(f"    ... {len(rows) - 5} more rows")
+        out.append({"query": n, "rows": len(rows), "k1_launches": k1,
+                    "k2_launches": k2, "k2_luts": k2_luts,
+                    "retries": retried, "median_ms": median,
+                    "device_ms": dev_ms, "profiled_wall_ms": wall_ms})
+    for name, total in totals.items():
+        if total < 1:
+            raise AssertionError(f"{name} did not launch in the 22 plans")
+    print(f"22 TPC-H plans equal their CPU runs; launches {totals}; "
+          f"retries {sum(q['retries'] for q in out)}")
+    print(json.dumps({"tpch_plans": out}))
+    print("HashJoin paths the 22 plans do not take at this SF:")
+    general_joins(conn, cpu, card)
+    return {"launches": totals, "queries": out}
+
+
+def general_join_plans() -> dict:
+    """Plans that take HashJoin's paths no TPC-H builder takes at SF1, each
+    under an ungrouped count / sum so that the result is one row."""
+    from duckdb_cubit_tpu_torch.ops.expressions import Col
+    from duckdb_cubit_tpu_torch.plan.physical import (Aggregate,
+                                                      GroupAggregate,
+                                                      HashJoin, TableScan)
+
+    def summed(join, *cols):
+        return GroupAggregate(join, [], [Aggregate("count", None, "n")] + [
+            Aggregate("count", Col(c), f"n_{c}") for c in cols] + [
+            Aggregate("sum", Col(c), f"s_{c}") for c in cols])
+
+    def scan(table, *cols):
+        return TableScan(table, projection=list(cols))
+
+    return {
+        # about 6M pairs against a capacity of twice orders': regrows
+        "inner expansion, orders x lineitem": lambda: summed(HashJoin(
+            scan("orders", "o_orderkey", "o_totalprice"),
+            scan("lineitem", "l_orderkey", "l_quantity"), ["o_orderkey"],
+            ["l_orderkey"], single_match=False), "o_totalprice",
+            "l_quantity"),
+        # duplicate build keys under single match: the unique check fails
+        # and the retry expands (and regrows)
+        "single match on duplicate keys, customer x orders": lambda: summed(
+            HashJoin(scan("customer", "c_custkey", "c_acctbal"),
+                     scan("orders", "o_custkey", "o_totalprice"),
+                     ["c_custkey"], ["o_custkey"]), "c_acctbal",
+            "o_totalprice"),
+        # a third of the customers place no order
+        "full outer, customer x orders": lambda: summed(HashJoin(
+            scan("customer", "c_custkey", "c_acctbal"),
+            scan("orders", "o_custkey", "o_totalprice"), ["c_custkey"],
+            ["o_custkey"], "full", single_match=False), "c_acctbal",
+            "o_totalprice"),
+        "left with a found column, customer x orders": lambda: summed(
+            HashJoin(scan("customer", "c_custkey", "c_acctbal"),
+                     scan("orders", "o_custkey", "o_totalprice"),
+                     ["c_custkey"], ["o_custkey"], "left",
+                     single_match=False, found_column="hit"),
+            "c_acctbal", "o_totalprice"),
+        "anti, packed 2-column key, partsupp x lineitem": lambda: summed(
+            HashJoin(scan("partsupp", "ps_partkey", "ps_suppkey",
+                          "ps_availqty"),
+                     scan("lineitem", "l_partkey", "l_suppkey"),
+                     ["ps_partkey", "ps_suppkey"],
+                     ["l_partkey", "l_suppkey"], "anti"), "ps_availqty"),
+        "semi, hashed 3-column key, partsupp x lineitem": lambda: summed(
+            HashJoin(scan("partsupp", "ps_partkey", "ps_suppkey",
+                          "ps_availqty"),
+                     scan("lineitem", "l_partkey", "l_suppkey",
+                          "l_linenumber"),
+                     ["ps_partkey", "ps_suppkey", "ps_availqty"],
+                     ["l_partkey", "l_suppkey", "l_linenumber"], "semi"),
+            "ps_availqty"),
+    }
+
+
+def general_joins(conn, cpu, card: str):
+    """Each general-join plan on the card against the CPU run; prints the
+    rows, the retries and the card's wall time of the run."""
+    from duckdb_cubit_tpu_torch.exec.result import to_strings
+
+    for label, build in general_join_plans().items():
+        retries = conn.executor.retry_count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = to_strings(conn.executor.execute(build()))
+        wall = (time.perf_counter() - t0) * 1e3
+        retried = conn.executor.retry_count - retries
+        want = to_strings(cpu.executor.execute(build()))
+        if rows != want:
+            raise AssertionError(f"{label}: card {rows} vs CPU {want}")
+        print(f"{label}: {rows[0]}, equal to the CPU run; retries "
+              f"{retried}; {wall:.3f} ms on the card, retries included  "
+              f"[{card}]")
 
 
 def k2_parity_cases():
@@ -870,25 +1088,6 @@ def counted(run, *must_launch):
     return result, counts
 
 
-def main_path_inputs(conn, sql: str) -> list:
-    """The (luts, keys) of every K2 call a query makes (a separate run: the
-    recording wrapper is not the counted main path)."""
-    from duckdb_cubit_tpu_torch.ops import probe
-
-    calls = []
-    real = probe.monotone_gather_many
-
-    def recording(luts, keys):
-        calls.append((list(luts), keys))
-        return real(luts, keys)
-    probe.monotone_gather_many = recording
-    try:
-        conn.sql(sql).strings()
-    finally:
-        probe.monotone_gather_many = real
-    return calls
-
-
 def pk_probe_profile(conn, sql: str) -> tuple[float, float]:
     """Device ms per call of the first kernel-path `HashJoin._pk_probe` of a
     query, from torch.profiler, split into (K2's own kernel, the rest: the
@@ -1018,7 +1217,7 @@ def main() -> int:
           f"{tuple(payloads[0].shape)} packed={packed}; kernel == plain")
     k2_calls = {}
     for name, sql in (("Q12", Q12), ("Q3", Q3)):
-        k2_calls[name] = main_path_inputs(conn, sql)
+        k2_calls[name] = kernel_calls(lambda: conn.sql(sql).strings())[2]
         got = [len(luts) for luts, _ in k2_calls[name]]
         if got != k2_luts[name]:
             raise AssertionError(f"{name} gathered {got} luts per K2 call, "
@@ -1027,6 +1226,14 @@ def main() -> int:
             err["monotone_gather"] = max(err["monotone_gather"], k2_compare(
                 f"{name} probe (l_orderkey), {len(luts)} luts", luts,
                 keys)[0])
+
+    phase(f"TPC-H plans: the 22 builders at SF{args.sf:g}")
+    plans = tpch_plans(conn, args.sf, card)
+    by_path = {name: {"sql": launches[name],
+                      "tpch_plans": plans["launches"][name]}
+               for name in plans["launches"]}
+    for name, paths in by_path.items():
+        launches[name] = sum(paths.values())
 
     phase("timing")
     print("card:", card)
@@ -1150,6 +1357,8 @@ def main() -> int:
     k2_row = next(r for r in table if r["name"] == "monotone_gather")
     k2_row.update(luts_per_launch=k2_luts, passes=k2_passes)
     for row in table:
+        if row["name"] in by_path:
+            row["launches_by_path"] = by_path[row["name"]]
         if row["name"] in fixed:
             row.update(fixed_ms=fixed[row["name"]],
                        clean_l2_ms=clean[row["name"]])

@@ -5,8 +5,9 @@ maximal chain of mask-preserving operators ending in a breaker (join build,
 aggregate, sort); `build_pipelines` gives the decomposition that `explain`
 prints.  Execution is the reference's eager path: optimize, prepare (host
 decisions, cached per plan signature), then run the operator tree over
-device tensors.  Deferred runtime checks are read after the run; a
-recoverable failure flips the operator that raised it to its plain path and
+device tensors.  Deferred runtime checks are read after the run, in one
+device -> host transfer; a recoverable failure flips the operator that
+raised it to its plain path (or doubles a join's expansion capacity) and
 the query runs again.  PyTorch runs eagerly, so the reference's staged and
 whole-plan compiled modes (jit-compiled programs per pipeline) have no
 counterpart here.
@@ -157,16 +158,22 @@ class Executor:
         flags = torch.stack([ok for _, ok in checks]).tolist()
         return [name for (name, _), ok in zip(checks, flags) if not ok]
 
+    # the expansion regrow: doubled, at least MIN_CAP, at most MAX_CAP
+    MIN_CAP = 1 << 13
+    MAX_CAP = 1 << 28
+
     @staticmethod
     def _handle_failed_checks(failed, ops) -> bool:
-        """Recoverable-check handler: flips the operator named by each
-        failed check to its plain path.  Returns False when any failure is
-        not recoverable (the caller raises)."""
+        """Recoverable-check handler for names `kind#tag` and
+        `kind#tag#cap`: flips the operator named by each failed check to its
+        plain path, or regrows its capacity.  Returns False when any failure
+        is not recoverable (the caller raises)."""
         for name in failed:
             parts = name.split("#")
-            if len(parts) != 2:
+            if len(parts) not in (2, 3):
                 return False
             kind, tag = parts[0], int(parts[1])
+            cap = int(parts[2]) if len(parts) == 3 else 0
             if not 0 <= tag < len(ops):
                 return False
             if kind == "pkprobe":
@@ -175,6 +182,12 @@ class Executor:
             elif kind == "unique":
                 # duplicate build keys: the expansion join
                 ops[tag]._force_expand = True
+            elif kind == "expansion":
+                # the join produced more pairs than its capacity holds
+                new_cap = max(cap * 2, Executor.MIN_CAP)
+                if new_cap > Executor.MAX_CAP:
+                    return False
+                ops[tag]._cap_override = new_cap
             else:
                 return False
         return True

@@ -5,7 +5,9 @@ single-table WHERE/SELECT binds to: column refs, literals, exact DECIMAL
 arithmetic (DuckDB's scale rules: add/sub align scales, mul adds scales, div
 promotes to DOUBLE), comparisons (string literals resolve against the
 column's sorted dictionary on the host, then compare int codes on the
-device), three-valued AND/OR/NOT, IN lists, casts, CASE and IS NULL.
+device), three-valued AND/OR/NOT, IN lists, LIKE and substring (over the
+dictionary on the host, then a gather by code on the device), year(date),
+casts, CASE and IS NULL.
 
 Stored columns are narrowed (int8/int16/int32, `storage/table.py`), and
 torch keeps a narrow tensor's type against a Python scalar (an int8 column
@@ -13,21 +15,22 @@ times 100 stays int8).  So every integer tensor is widened to int64 before
 any arithmetic, comparison or `where`; this is what the reference's
 promotion through int64 does implicitly.
 
-Expression classes that later slices port (LIKE, substring, date parts,
-string functions, math functions, ...) exist by name so the shared binder
+Expression classes that later slices port (other date parts, string
+functions, math functions, ...) exist by name so the shared binder
 can refer to them, and raise NotImplementedError when constructed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any
 
 import numpy as np
 import torch
 
 from ..types import (BOOL, DATE, DOUBLE, INT64, VARCHAR, DataType, TypeId,
-                     date_to_days, decimal_to_int)
+                     date_to_days, days_to_date, decimal_to_int)
 
 
 @dataclasses.dataclass
@@ -426,6 +429,96 @@ class InList(Expr):
         return Typed(out, BOOL, None, ct.valid)
 
 
+def like_to_regex(pattern: str) -> str:
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "^" + "".join(out) + "$"
+
+
+@dataclasses.dataclass(eq=False)
+class Like(Expr):
+    """LIKE on a dictionary column: the pattern is matched once per
+    dictionary entry on the host, and the rows index that truth table by
+    their codes on the column's device."""
+    child: Expr
+    pattern: str
+
+    def eval(self, ctx):
+        ct = self.child.eval(ctx)
+        assert ct.dtype.id == TypeId.VARCHAR, "LIKE requires a varchar column"
+        rx = re.compile(like_to_regex(self.pattern).encode())
+
+        def match(d):
+            return np.fromiter((rx.match(s) is not None for s in d),
+                               count=len(d), dtype=np.bool_)
+
+        return Typed(_code_truth_table(ct, match), BOOL, None, ct.valid)
+
+
+@dataclasses.dataclass(eq=False)
+class Substr(Expr):
+    """substring(col, start, length) on a dictionary column.
+
+    Each dictionary entry maps to its substring on the host; the distinct
+    substrings become a new sorted dictionary, and the device work is one
+    int32 gather through the code remap table.
+    """
+    child: Expr
+    start: int  # 1-based (SQL semantics)
+    length: int
+
+    def eval(self, ctx):
+        ct = self.child.eval(ctx)
+        assert ct.dtype.id == TypeId.VARCHAR and ct.dictionary is not None
+        subs = np.array([s[self.start - 1: self.start - 1 + self.length]
+                         for s in ct.dictionary])
+        new_dict, remap = np.unique(subs, return_inverse=True)
+        codes = torch.as_tensor(remap.astype(np.int32),
+                                device=ct.array.device)[_wide(ct.array)]
+        return Typed(codes, VARCHAR, new_dict, ct.valid)
+
+
+def _floor_div(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+@dataclasses.dataclass(eq=False)
+class ExtractYear(Expr):
+    """year(date): Hinnant's civil-from-days in int64 with floor division
+    (days before 1970 are negative)."""
+    child: Expr
+
+    def eval(self, ctx):
+        ct = self.child.eval(ctx)
+        assert ct.dtype.id == TypeId.DATE
+        z = ct.array.to(torch.int64) + 719468
+        era = _floor_div(z, 146097)
+        doe = z - era * 146097
+        yoe = _floor_div(doe - _floor_div(doe, 1460) + _floor_div(doe, 36524)
+                         - _floor_div(doe, 146096), 365)
+        y = yoe + era * 400
+        doy = doe - (365 * yoe + _floor_div(yoe, 4) - _floor_div(yoe, 100))
+        mp = _floor_div(5 * doy + 2, 153)
+        # months 1 and 2 (mp 10, 11) belong to the next civil year
+        y = y + (mp >= 10).to(torch.int64)
+        return Typed(y, INT64, None, ct.valid, domain=_year_domain(ct.domain))
+
+
+def _year_domain(day_domain):
+    """Host: distinct civil years covered by a DATE column's day domain."""
+    if day_domain is None:
+        return None
+    lo = days_to_date(int(day_domain[0])).year
+    hi = days_to_date(int(day_domain[-1])).year
+    return np.arange(lo, hi + 1, dtype=np.int64)
+
+
 @dataclasses.dataclass(eq=False)
 class CastDouble(Expr):
     child: Expr
@@ -522,9 +615,6 @@ class _NotPorted(Expr):
         raise NotImplementedError(f"{type(self).__name__}: not ported yet")
 
 
-class Like(_NotPorted): pass
-class Substr(_NotPorted): pass
-class ExtractYear(_NotPorted): pass
 class ValidIf(_NotPorted): pass
 class ExtractField(_NotPorted): pass
 class StrMap(_NotPorted): pass

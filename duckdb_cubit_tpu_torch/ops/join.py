@@ -23,8 +23,7 @@ JAX package, both sides are whole-column passes with no atomics:
     gives SEMI / ANTI masks.
 
 All shapes are static; "not found" is -1 and callers carry validity masks.
-No engine operator calls this module yet: HashJoin's general paths are the
-next slice (ROADMAP queue 1 item 9).
+`HashJoin`'s general paths (`plan/physical.py`) run on this module.
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
 """Low-level tensor primitives shared by the operator library.
 
-Counterpart of `duckdb_cubit_tpu/ops/kernels.py` without hashing (it comes
-with the general joins): order-preserving int64 keys, exact split (hi, lo)
-sums, grouped and sorted-segment reductions, the multi-key sort, and
-selection-vector compaction.
+Counterpart of `duckdb_cubit_tpu/ops/kernels.py`: hashing, order-preserving
+int64 keys, exact split (hi, lo) sums, grouped and sorted-segment
+reductions, the multi-key sort, and selection-vector compaction.
 
 Exactness note: every int64 sum is computed as a split (hi, lo) pair — lo
 sums the low 32 bits, hi the arithmetically-shifted high 32 bits — and
@@ -14,6 +13,46 @@ row count.
 from __future__ import annotations
 
 import torch
+
+# ----------------------------------------------------------------- hashing
+#
+# torch has no uint64 arithmetic, so the reference's uint64 hash runs on
+# int64 bit patterns: adds and multiplies wrap modulo 2**64 on the CPU and
+# the card alike, and a logical right shift is the arithmetic shift with
+# the sign-extended top bits masked off.  Results are the reference's
+# uint64 values viewed as int64.
+
+
+def _signed(u: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_GOLDEN64 = _signed(0x9E3779B97F4A7C15)
+_MIX1 = _signed(0xBF58476D1CE4E5B9)
+_MIX2 = _signed(0x94D049BB133111EB)
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def hash64(keys: torch.Tensor) -> torch.Tensor:
+    """64-bit avalanche hash (splitmix64 finalizer) of an int key column,
+    as int64 bit patterns."""
+    x = keys.to(torch.int64) + _GOLDEN64
+    x = (x ^ _shr(x, 30)) * _MIX1
+    x = (x ^ _shr(x, 27)) * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def hash_combine(h: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """Combine hashes of multiple key columns."""
+    h = h.to(torch.int64)
+    return hash64(h ^ (other.to(torch.int64) + _GOLDEN64 + (h << 6)
+                       + _shr(h, 2)))
+
 
 # ----------------------------------------------- order-preserving keys
 

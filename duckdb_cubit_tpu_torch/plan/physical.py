@@ -6,10 +6,12 @@ keeps its input's capacity wherever it can, narrowing the mask instead of
 moving rows.  Ported so far: TableScan (CUBIT index words, the decode-vs-mask
 decision, row-id decode), Filter, Project, GroupAggregate (ungrouped, with
 the fused bitmap-scan + SUM kernel of `ops/fused_scan.py`; dense mixed-radix,
-FK-dense and sort-based grouping), HashJoin's direct-address PK path (the
-probe and the build-value fetch through the monotone gather kernel of
-`ops/probe.py`), OrderBy and Limit.  Operators and join paths that later
-slices port exist by name for the shared binder and optimizer, and raise
+FK-dense and sort-based grouping), HashJoin (the direct-address PK path,
+whose probe and build-value fetch go through the monotone gather kernel of
+`ops/probe.py`; the reverse-PK semi join; and the general sort-merge paths
+of `ops/join.py`: single match, expansion, LEFT / FULL OUTER, SEMI / ANTI,
+multi-column keys), OrderBy and Limit.  Operators that later slices port
+exist by name for the shared binder and optimizer, and raise
 NotImplementedError.
 """
 
@@ -24,6 +26,7 @@ import torch
 from ..ops import bitmap as bm
 from ..ops import fused_scan as fs
 from ..ops import groupby as groupby_ops
+from ..ops import join as join_ops
 from ..ops import kernels
 from ..ops import probe as PPK
 from ..ops.expressions import (Arith, Col, ColMeta, EvalContext, Expr,
@@ -93,12 +96,16 @@ class ExecContext:
         # id(op) -> its output, so a subtree shared by two parents runs once
         self._cache: dict[int, Relation] = {}
 
-    def add_check(self, op, kind: str, ok):
-        """Attach a deferred runtime assertion.  `kind` in {"pkprobe",
-        "unique"} is recoverable: the executor flips the operator to its
-        plain path and runs the query again (exec/executor.py)."""
+    def add_check(self, op, kind: str, ok, cap: int = 0):
+        """Attach a deferred runtime assertion, named `kind#tag` (or
+        `kind#tag#cap` with a capacity).  Each kind is recoverable, and the
+        executor runs the query again (exec/executor.py): "pkprobe" flips
+        the join to the plain lut probe, "unique" from the single-match to
+        the expansion join, and "expansion" doubles the join's output
+        capacity."""
         tag = self.check_tags.get(id(op), -1)
-        self.checks.append((f"{kind}#{tag}", ok))
+        name = f"{kind}#{tag}" + (f"#{int(cap)}" if cap else "")
+        self.checks.append((name, ok))
 
 
 class PhysicalOperator:
@@ -436,16 +443,68 @@ class Project(PhysicalOperator):
                 f"keep={self.keep_input}]")
 
 
+def _combine_keys(ctx, rel: Relation, names: list[str]) -> torch.Tensor:
+    """Combine key columns into one int64 join key.
+
+    Two columns pack exactly (collision-free) with a deferred range check
+    of the low word, which is not recoverable: its failure raises.  Three or
+    more columns hash-combine, and every probe path re-checks the real key
+    columns after the match (`_exact_key_eq`)."""
+    # float keys go through the injective monotone int64 encoding so
+    # equality is exact
+    key = kernels.monotone_i64(rel.columns[names[0]].array)
+    if len(names) == 2:
+        nxt = kernels.monotone_i64(rel.columns[names[1]].array)
+        ok = (~rel.mask | ((nxt >= 0) & (nxt < 1 << 32))).all()
+        ctx.checks.append((f"join_key_pack_range[{names[1]}]", ok))
+        key = (key << 32) + nxt
+    elif len(names) > 2:
+        for n in names[1:]:
+            nxt = kernels.monotone_i64(rel.columns[n].array)
+            key = kernels.hash64(key) * 2654435761 ^ nxt
+    return key
+
+
+def _exact_key_eq(probe_rel, build_rel, probe_keys, build_keys, probe_rows,
+                  build_rows, base):
+    """AND `base` with exact equality of every key column pair, gathered
+    through explicit row-index vectors (the collision re-check)."""
+    safe_p = torch.clamp(probe_rows, 0, probe_rel.capacity - 1)
+    safe_b = torch.clamp(build_rows, 0, build_rel.capacity - 1)
+    for pk, bk in zip(probe_keys, build_keys):
+        pa = probe_rel.columns[pk].array[safe_p]
+        ba = build_rel.columns[bk].array[safe_b]
+        base = base & (pa.to(torch.int64) == ba.to(torch.int64))
+    return base
+
+
+def _scatter_flags(size: int, at: torch.Tensor, ok: torch.Tensor):
+    """A (size,) bool tensor, True at at[i] wherever ok[i]."""
+    tgt = torch.where(ok, at.to(torch.int64), torch.full_like(
+        at, size, dtype=torch.int64))
+    hit = torch.zeros(size + 1, dtype=torch.bool, device=at.device)
+    hit[tgt] = True
+    return hit[:size]
+
+
 class HashJoin(PhysicalOperator):
-    """Equi-join.  This slice ports the direct-address PK-FK path: a
-    single-column key whose build side stays aligned to a base table with a
-    dense PK index.  `single_match=True` keeps the probe relation's shape
-    and gathers build columns through the matched row (no expansion, the
-    mask narrows on a miss).  Sorted probe keys go through the monotone
-    gather kernel (`ops/probe.py`), which fetches the row and the build
-    values from key-space value luts in one pass.  The general hash build,
-    the reverse-PK semi join and the expansion path come with ROADMAP queue
-    1 item 9 and raise.
+    """Equi-join.
+
+    `single_match=True` keeps the probe relation's shape and gathers build
+    columns through the matched row (no expansion, the mask narrows on a
+    miss).  A single-column key whose build side stays aligned to a base
+    table with a dense PK index takes the direct-address path; sorted probe
+    keys then go through the monotone gather kernel (`ops/probe.py`), which
+    fetches the row and the build values from key-space value luts in one
+    pass.  A semi / anti join whose PROBE side owns the PK scatters the
+    build side's hits into probe rows (the reverse-PK semi join).
+    Otherwise the build side is sorted into a CSR and probed by a sort-merge
+    (`ops/join.py`): single-match joins check that the matched build keys
+    are unique (a recoverable check: the retry expands), and the general
+    path expands matches into a fresh capacity (a recoverable check: the
+    retry doubles it).  FULL OUTER always expands: unmatched probe rows get
+    NULL build columns (as LEFT) and unmatched build rows are appended as an
+    extra capacity segment with NULL probe columns.
 
     join_type: 'inner' | 'semi' | 'anti' | 'left' | 'full'
     """
@@ -595,10 +654,144 @@ class HashJoin(PhysicalOperator):
                 self._value_fetches(probe_rel, build_rel))
             return self._gather_single(probe_rel, build_rel, build_row,
                                        found, kc, values)
-        path = "reverse-PK semi join" if self._reverse_pk is not None \
-            else "hash build and expansion"
-        raise NotImplementedError(
-            f"HashJoin {path}: not ported yet (ROADMAP queue 1 item 9)")
+        if self._reverse_pk is not None:
+            # the probe side owns the PK: one scatter of the build side's
+            # hits into a probe-row flag array instead of a hash build
+            base, _, max_key = self._reverse_pk
+            lut = ctx.catalog.table(base).pk_indexes[self.probe_keys[0]].lut
+            k = build_rel.columns[self.build_keys[0]].array.to(torch.int64)
+            ok = build_rel.mask & (k >= 0) & (k <= max_key)
+            rows = lut[torch.clamp(k, 0, max_key)]
+            hit = _scatter_flags(probe_rel.capacity, rows, ok & (rows >= 0))
+            m = ~hit if self.join_type == "anti" else hit
+            return probe_rel.with_mask(probe_rel.mask & m)
+        bkey = _combine_keys(ctx, build_rel, self.build_keys)
+        pkey = _combine_keys(ctx, probe_rel, self.probe_keys)
+        bs = join_ops.build(bkey, build_rel.mask)
+        if self.join_type in ("semi", "anti"):
+            if len(self.probe_keys) > 2:
+                # hash-combined keys can collide: expansion, the exact
+                # re-check and a scatter of the hits
+                hit = self._semi_exact(ctx, probe_rel, build_rel, bs, pkey)
+                m = ~hit if self.join_type == "anti" else hit
+                return probe_rel.with_mask(m & probe_rel.mask)
+            return probe_rel.with_mask(join_ops.semi_mask(
+                bs, pkey, probe_rel.mask, anti=self.join_type == "anti"))
+        if self.single_match and not getattr(self, "_force_expand", False) \
+                and self.join_type != "full":
+            entry = join_ops.probe(bs, pkey, probe_rel.mask)
+            found = entry >= 0
+            safe_e = entry.clamp(min=0).to(torch.int64)
+            # an unused entry's start is the capacity: clamped, then masked
+            start = bs.starts[safe_e].to(torch.int64).clamp(
+                max=bs.sorted_rows.shape[0] - 1)
+            build_row = torch.where(found, bs.sorted_rows[start],
+                                    torch.full_like(entry, -1))
+            # the single-match contract: the matched build keys are unique;
+            # otherwise the retry takes the expansion join
+            unique_ok = (~found | (bs.counts[safe_e] <= 1)).all()
+            ctx.add_check(self, "unique", unique_ok)
+            if len(self.probe_keys) > 2:
+                probe_rows = torch.arange(probe_rel.capacity,
+                                          device=entry.device)
+                found = _exact_key_eq(probe_rel, build_rel, self.probe_keys,
+                                      self.build_keys, probe_rows, build_row,
+                                      found)
+            return self._gather_single(probe_rel, build_rel, build_row,
+                                       found, None, {})
+        return self._expand(ctx, probe_rel, build_rel, bs, pkey)
+
+    def _semi_exact(self, ctx, probe_rel, build_rel, bs, pkey):
+        """Exact semi-join hit mask for hash-combined (3+ column) keys."""
+        cap = (getattr(self, "_cap_override", None) or self.out_capacity
+               or pad_count(probe_rel.capacity))
+        entry = join_ops.probe(bs, pkey, probe_rel.mask)
+        out_probe, out_build, total = join_ops.expand_matches(
+            bs.starts, bs.counts, bs.sorted_rows, entry, probe_rel.mask, cap)
+        ctx.add_check(self, "expansion", total <= cap, cap)
+        valid = (torch.arange(cap, device=entry.device) < total) & \
+            (out_probe >= 0)
+        eq = _exact_key_eq(probe_rel, build_rel, self.probe_keys,
+                           self.build_keys, out_probe, out_build, valid)
+        return _scatter_flags(probe_rel.capacity, out_probe.clamp(min=0), eq)
+
+    def _expand(self, ctx, probe_rel, build_rel, bs, pkey):
+        """Inner / LEFT / FULL join with variable match counts, expanded
+        into (probe row, build row) pairs at a static output capacity; the
+        output columns are fresh gathers, so none claims `monotone`."""
+        left = self.join_type in ("left", "full")
+        entry = join_ops.probe(bs, pkey, probe_rel.mask)
+        cap = getattr(self, "_cap_override", None) or self.out_capacity
+        if cap is None:
+            # a guess from the session config; the deferred check below
+            # catches an undershoot and the executor regrows and retries
+            factor = (ctx.config.join_expansion_factor
+                      if ctx.config is not None else 1.0)
+            cap = pad_count(int(probe_rel.capacity * factor))
+        out_probe, out_build, total = join_ops.expand_matches(
+            bs.starts, bs.counts, bs.sorted_rows, entry, probe_rel.mask, cap,
+            left=left)
+        ctx.add_check(self, "expansion", total <= cap, cap)
+        valid = torch.arange(cap, device=entry.device) < total
+        matched = out_build >= 0
+        if len(self.probe_keys) > 2:
+            eq = _exact_key_eq(probe_rel, build_rel, self.probe_keys,
+                               self.build_keys, out_probe, out_build,
+                               valid & matched)
+            if left:
+                matched = matched & eq
+            else:
+                valid = eq
+        out = probe_rel.gather(out_probe, valid, cap)
+        cols = dict(out.columns)
+        safe_b = torch.clamp(out_build, 0, build_rel.capacity - 1)
+        for n, c in build_rel.columns.items():
+            out_name = self.build_prefix + n
+            if out_name in cols:
+                continue
+            v = None if c.valid is None else c.valid[safe_b]
+            if left:
+                # unmatched probe rows see NULL build values
+                v = matched if v is None else (v & matched)
+            cols[out_name] = RelColumn(c.array[safe_b], c.dtype, c.dictionary,
+                                       c.domain, v)
+        if left and self.found_column:
+            cols[self.found_column] = RelColumn(matched & valid, BOOL, None)
+        if self.join_type == "full":
+            return self._append_unmatched_build(
+                probe_rel, build_rel, cols, valid, cap, out_build, matched)
+        return Relation(cols, valid, cap)
+
+    def _append_unmatched_build(self, probe_rel, build_rel, cols, valid,
+                                cap, out_build, matched):
+        """FULL OUTER tail: build rows no probe row matched, appended as an
+        extra capacity segment with NULL probe columns."""
+        bcap = build_rel.capacity
+        dev = valid.device
+        hit = _scatter_flags(bcap, out_build.clamp(min=0), matched & valid)
+        extra_mask = build_rel.mask & ~hit
+        probe_names = set(probe_rel.columns)
+        ones_head = torch.ones(cap, dtype=torch.bool, device=dev)
+        out_cols = {}
+        for n, c in cols.items():
+            head_v = c.valid if c.valid is not None else ones_head
+            if n in probe_names:
+                arr = torch.cat([c.array, torch.zeros(
+                    bcap, dtype=c.array.dtype, device=dev)])
+                v = torch.cat([head_v, torch.zeros(bcap, dtype=torch.bool,
+                                                   device=dev)])
+            else:
+                # build-origin column: strip the prefix to find the source
+                stripped = n[len(self.build_prefix):]
+                src = build_rel.columns[
+                    stripped if n.startswith(self.build_prefix)
+                    and stripped in build_rel.columns else n]
+                arr = torch.cat([c.array, src.array.to(c.array.dtype)])
+                tail_v = src.valid if src.valid is not None else \
+                    torch.ones(bcap, dtype=torch.bool, device=dev)
+                v = torch.cat([head_v, tail_v])
+            out_cols[n] = RelColumn(arr, c.dtype, c.dictionary, c.domain, v)
+        return Relation(out_cols, torch.cat([valid, extra_mask]), cap + bcap)
 
     def _gather_single(self, probe_rel, build_rel, build_row, found,
                        kernel_keys, values):
@@ -643,13 +836,15 @@ class HashJoin(PhysicalOperator):
                 f" single={self.single_match})")
 
     def _self_signature(self):
-        # includes the kernel switch, so a retry after an overflow is a new
+        # includes every switch a retry flips (the regrown capacity, the
+        # expansion fallback, the kernel switch), so a retry is a new
         # prepare-cache entry and never the stale one
         return (f"hash_join[{self.join_type};{self.probe_keys};{self.build_keys};"
                 f"{self.single_match};{self.out_capacity};{self.build_prefix};"
                 f"fc={self.found_column};"
                 f"pk={getattr(self, '_pk', None)};"
                 f"rpk={getattr(self, '_reverse_pk', None)};"
+                f"ov={getattr(self, '_cap_override', None)};"
                 f"fe={getattr(self, '_force_expand', False)};"
                 f"nkp={getattr(self, '_no_kernel_probe', False)}]")
 
