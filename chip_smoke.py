@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch + CUDA port: TPC-H Q6, Q1, Q12 and Q3 through
-the public API, all 22 TPC-H plan builders, then the reference's three
-benchmark entry points.
+the public API, all 22 TPC-H plan builders, the 22 TPC-H SQL texts, the
+sqllogic files the port runs, then the reference's three benchmark entry
+points.
 
     python3 chip_smoke.py            # SF1 (6,001,215 lineitem rows)
     python3 chip_smoke.py --sf 10    # SF10
@@ -65,7 +66,18 @@ raises on failure (non-zero exit):
      keys (the `unique` retry to expansion), FULL OUTER, LEFT with a found
      column, ANTI on a packed 2-column key and SEMI on a hashed 3-column
      key, each equal to its CPU run;
-  6. timing: each query end to end (median of warm runs), the device busy
+  6. TPC-H SQL: each of the 22 texts of `tpch/sql_queries.py` through
+     `conn.sql(...)` on the same card catalog, with the launch counts set to
+     0 just before it and read just after, held cell by cell (DOUBLE cells
+     within 1e-9) against the rows the card's builder of the same query
+     gave in phase 5 (themselves held against the port's CPU run).  K1 must
+     launch exactly once in q6, K2 in q3 and q12.  Per query: the first
+     rows, K1 / K2 launches beside the builder's, the retries, the median
+     of warm wall times and the profiled device time;
+  7. sqllogic: each file of `testing/sqllogic_gate.FILES` through the
+     port's copy of the sqllogic runner on a fresh `Connection()` (the
+     card);
+  8. timing: each query end to end (median of warm runs), the device busy
      share of each from torch.profiler with its top device kernels, the
      device time of the PK probe's prelude beside K2's, and each kernel
      alone against its plain version at the main path's shapes with the L2
@@ -73,7 +85,7 @@ raises on failure (non-zero exit):
      and the one PyTorch call that computes the same function, where there
      is one; K2's 2- and 4-lut passes against the one-lut launches they
      replaced;
-  7. entry points, each with every launch count set to 0 just before it
+  9. entry points, each with every launch count set to 0 just before it
      and read just after, on the catalog already loaded:
      `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
      K4 must launch; then K3 on all-zero words and K4 on an all-zero mask,
@@ -88,8 +100,8 @@ raises on failure (non-zero exit):
      and prints its times.
 
 The kernel table is one JSON line (each kernel's `launches` sums the main
-path's runs: the four SQL queries and the 22 plans, split in
-`launches_by_path`), then the card's name and power limit; the last line
+path's runs: the four SQL queries, the 22 plans and the 22 SQL texts, split
+in `launches_by_path` as "sql", "tpch_plans" and "tpch_sql"), then the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
 """
 
@@ -97,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -447,7 +460,7 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
     cpu = connect(sf=sf, device="cpu")
     print(f"CPU catalog at SF{sf:g} loaded in {time.perf_counter() - t0:.2f} s")
     totals = {"fused_scan_sum": 0, "monotone_gather": 0}
-    out = []
+    out, card_rows = [], {}
     for n in sorted(queries.QUERIES):
         def run_card(n=n):
             rel = queries.run(conn.executor, n)
@@ -494,6 +507,7 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
                     "k2_launches": k2, "k2_luts": k2_luts,
                     "retries": retried, "median_ms": median,
                     "device_ms": dev_ms, "profiled_wall_ms": wall_ms})
+        card_rows[n] = rows, doubles
     for name, total in totals.items():
         if total < 1:
             raise AssertionError(f"{name} did not launch in the 22 plans")
@@ -502,7 +516,91 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
     print(json.dumps({"tpch_plans": out}))
     print("HashJoin paths the 22 plans do not take at this SF:")
     general_joins(conn, cpu, card)
+    return {"launches": totals, "queries": out, "rows": card_rows}
+
+
+def tpch_sql(conn, plans: dict, card: str) -> dict:
+    """The 22 TPC-H SQL texts through `conn.sql` on the card, each held cell
+    by cell against the rows the card's builder of the same query gave
+    (`plans["rows"]`, already held against the port's CPU run).  Each run
+    has every launch count set to 0 just before it and read just after: K1
+    must launch exactly once in q6, K2 in q3 and q12.
+    -> {"launches": {kernel: total}, "queries": [per-query row]}."""
+    from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
+
+    builder = {q["query"]: q for q in plans["queries"]}
+    must = {6: {"fused_scan_sum": 1}, 3: {"monotone_gather": 1},
+            12: {"monotone_gather": 1}}
+    totals = {"fused_scan_sum": 0, "monotone_gather": 0}
+    out = []
+    for n in sorted(SQL):
+        def run(n=n):
+            return conn.sql(SQL[n]).strings()
+        retries = conn.executor.retry_count
+        rows, counts = counted(run)
+        retried = conn.executor.retry_count - retries
+        want, doubles = plans["rows"][n]
+        if not cells_agree(rows, want, doubles):
+            raise AssertionError(f"SQL q{n} disagrees with its builder on "
+                                 f"the card: {rows[:3]} vs {want[:3]}")
+        k1, k2 = counts["fused_scan_sum"], counts["monotone_gather"]
+        if k1 != must.get(n, {}).get("fused_scan_sum", k1) or \
+                k2 < must.get(n, {}).get("monotone_gather", 0):
+            raise AssertionError(f"SQL q{n} launched K1 {k1} / K2 {k2} "
+                                 f"times; expected {must[n]}")
+        totals["fused_scan_sum"] += k1
+        totals["monotone_gather"] += k2
+        times = []
+        for _ in range(RUNS_PLANS + 2):
+            t1 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t1) * 1e3)
+        median = statistics.median(times[2:])
+        dev_ms, wall_ms, _ = device_busy_share(run, 3)
+        b = builder[n]
+        print(f"SQL q{n}: {len(rows)} rows, equal to the builder's; K1 "
+              f"{k1} (builder {b['k1_launches']}), K2 {k2} (builder "
+              f"{b['k2_launches']}), retries {retried}; median "
+              f"{median:.3f} ms over {RUNS_PLANS} warm runs (builder "
+              f"{b['median_ms']:.3f}); profiled: device kernels "
+              f"{dev_ms:.4f} ms of {wall_ms:.4f} ms wall (builder "
+              f"{b['device_ms']:.4f})  [{card}]")
+        for row in rows[:3]:
+            print("   ", row)
+        out.append({"query": n, "rows": len(rows), "k1_launches": k1,
+                    "k2_launches": k2, "retries": retried,
+                    "median_ms": median, "device_ms": dev_ms,
+                    "profiled_wall_ms": wall_ms,
+                    "builder_median_ms": b["median_ms"],
+                    "builder_device_ms": b["device_ms"]})
+    print(f"22 TPC-H SQL texts equal their builders; launches {totals}; "
+          f"retries {sum(q['retries'] for q in out)}")
+    print(json.dumps({"tpch_sql": out}))
     return {"launches": totals, "queries": out}
+
+
+def sqllogic_on_card(card: str):
+    """Each gated sqllogic file through the port's runner on a fresh
+    `Connection()`, which is on the card."""
+    from duckdb_cubit_tpu_torch.api import Connection
+    from duckdb_cubit_tpu_torch.testing.sqllogic import run_file
+    from duckdb_cubit_tpu_torch.testing.sqllogic_gate import FILES
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "sqllogic")
+    t0 = time.perf_counter()
+    records = 0
+    for rel in FILES:
+        conn = Connection()
+        if conn.device.type != "cuda":
+            raise AssertionError(f"Connection() is on {conn.device}")
+        report = run_file(os.path.join(root, rel), conn=conn)
+        if report.skipped or report.executed < 1:
+            raise AssertionError(f"{rel}: skipped or empty ({report})")
+        records += report.executed
+        print(f"{rel}: {report.executed} records pass")
+    print(f"sqllogic: {len(FILES)} files, {records} records executed on the "
+          f"card in {time.perf_counter() - t0:.2f} s  [{card}]")
 
 
 def general_join_plans() -> dict:
@@ -1229,8 +1327,13 @@ def main() -> int:
 
     phase(f"TPC-H plans: the 22 builders at SF{args.sf:g}")
     plans = tpch_plans(conn, args.sf, card)
+    phase(f"TPC-H SQL: the 22 texts at SF{args.sf:g}")
+    texts = tpch_sql(conn, plans, card)
+    phase("sqllogic")
+    sqllogic_on_card(card)
     by_path = {name: {"sql": launches[name],
-                      "tpch_plans": plans["launches"][name]}
+                      "tpch_plans": plans["launches"][name],
+                      "tpch_sql": texts["launches"][name]}
                for name in plans["launches"]}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())

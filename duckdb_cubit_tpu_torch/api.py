@@ -1,13 +1,15 @@
 """User-facing connection API.
 
 Counterpart of `duckdb_cubit_tpu/api.py`: `Connection.sql()` drives parse ->
-bind -> optimize -> execute over the port's device tensors.  The device is
-the card unless the caller asks for another: `connect(sf)` and
-`Connection(...)` default to `device="cuda"` (and raise where there is no
-card; nothing falls back to the CPU), `device="cpu"` runs the plain torch
-bodies.  Every table of the catalog must live on the connection's device.
-This slice runs SELECT statements; other statements, meshes and
-transactions come later.
+bind -> optimize -> execute over the port's device tensors for a SELECT, and
+hands every other statement to `sql/statements.py` (CREATE TABLE [AS],
+CREATE INDEX, INSERT, DROP, SET, EXPLAIN, PRAGMA).  The device is the card
+unless the caller asks for another: `connect(sf)` and `Connection(...)`
+default to `device="cuda"` (and raise where there is no card; nothing falls
+back to the CPU), `device="cpu"` runs the plain torch bodies.  Every table of
+the catalog must live on the connection's device.  DELETE, UPDATE,
+transactions, persistence, prepared statements and meshes come later: the
+statements raise NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -17,24 +19,34 @@ import torch
 from .exec import result as R
 from .exec.executor import Executor
 from .sql.binder import Binder
-from .storage.table import Catalog
+from .storage.table import Catalog, from_numpy
 
 
 class Result:
-    """A SELECT's rows, materialized on the host on request."""
+    """A SELECT's rows, materialized on the host on request; or a
+    statement's status and its static rows (EXPLAIN, PRAGMA tpch)."""
 
-    def __init__(self, relation):
+    def __init__(self, relation, status: str | None = None,
+                 static_rows: list | None = None):
         self.relation = relation
+        self.status = status
+        self._static_rows = static_rows
 
     def rows(self) -> list[tuple]:
+        if self.relation is None:
+            return [tuple(r) for r in (self._static_rows or [])]
         _, rows, _ = R.materialize(self.relation)
         return rows
 
     def strings(self) -> list[list[str]]:
+        if self.relation is None:
+            return [[str(v) for v in r] for r in (self._static_rows or [])]
         return R.to_strings(self.relation)
 
     def __repr__(self):
         rows = self.strings()
+        if not rows and self.status:
+            return self.status
         head = [" | ".join(r) for r in rows[:20]]
         more = f"\n... ({len(rows)} rows)" if len(rows) > 20 else ""
         return "\n".join(head) + more
@@ -48,6 +60,7 @@ class Connection:
         self.device = torch.device(device)
         self.catalog = catalog if catalog is not None else Catalog()
         self._check_device(self.catalog)
+        self.catalog.device = self.device
         self.config = config if config is not None else EngineConfig()
         self.executor = Executor(self.catalog, self.config)
         self.binder = Binder(self.catalog, self.executor)
@@ -59,10 +72,15 @@ class Connection:
                                  f"connection on {self.device}")
 
     # -------------------------------------------------------------- data in
+    def register_numpy(self, name: str, columns: dict, schema=None):
+        self.catalog.register(from_numpy(name, columns, schema,
+                                         device=self.device))
+
     def load_tpch(self, sf: float = 0.01):
         from .tpch import load
 
         self.catalog = load.load_catalog(sf, device=self.device)
+        self.catalog.device = self.device
         self.executor = Executor(self.catalog, self.config)
         self.binder = Binder(self.catalog, self.executor)
         return self
@@ -70,16 +88,23 @@ class Connection:
     # ------------------------------------------------------------- querying
     def sql(self, query: str) -> Result:
         from .sql import ast as A
+        from .sql import statements
         from .sql.parser import parse_statement
 
         stmt = parse_statement(query)
-        if not isinstance(stmt, A.SelectStmt):
-            raise NotImplementedError(
-                f"{type(stmt).__name__} statements: not ported yet")
-        if self.config.query_timeout_s > 0:
-            raise NotImplementedError("query_timeout_s: not ported yet")
-        plan = self.binder.bind(stmt)
+        if isinstance(stmt, A.SelectStmt):
+            statements.refuse_unported_settings(self.config)
+            return Result(self.executor.execute(self.binder.bind(stmt)))
+        status, rows = statements.execute_statement(self, stmt)
+        return Result(None, status=status, static_rows=rows)
+
+    def execute_plan(self, plan) -> Result:
         return Result(self.executor.execute(plan))
+
+    def tpch_query(self, n: int) -> Result:
+        from .tpch import queries
+
+        return Result(queries.run(self.executor, n))
 
     def explain(self, query: str) -> str:
         plan = self.binder.bind_sql(query)

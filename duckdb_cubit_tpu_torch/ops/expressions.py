@@ -15,9 +15,9 @@ times 100 stays int8).  So every integer tensor is widened to int64 before
 any arithmetic, comparison or `where`; this is what the reference's
 promotion through int64 does implicitly.
 
-Expression classes that later slices port (other date parts, string
-functions, math functions, ...) exist by name so the shared binder
-can refer to them, and raise NotImplementedError when constructed.
+Date parts (`ExtractField`), the per-dictionary string functions
+(`StrMap`, `StrLen`, `Concat`), scalar math (`MathFn`) and `ValidIf` follow
+the same pattern: host work per dictionary entry, device work per row.
 """
 
 from __future__ import annotations
@@ -246,8 +246,12 @@ class Arith(Expr):
                              DOUBLE, None, v)
             la = _as_tensor(lt.array, dev).to(torch.int64)
             ra = _as_tensor(rt.array, dev).to(torch.int64)
-            # SQL mod takes the DIVIDEND's sign (C semantics)
-            rem = torch.sign(la) * (torch.abs(la) % torch.abs(ra))
+            # SQL mod takes the DIVIDEND's sign (C semantics); x % 0 is 0,
+            # as in the reference (torch raises on the CPU and returns
+            # garbage on the card, and padding slots may hold a 0 divisor)
+            zero = ra == 0
+            rem = torch.sign(la) * torch.where(
+                zero, 0, torch.abs(la) % torch.where(zero, 1, torch.abs(ra)))
             return Typed(rem, INT64, None, v)
         if self.op == "/" or TypeId.DOUBLE in (lt.dtype.id, rt.dtype.id):
             la, ra = _as_double(lt), _as_double(rt)
@@ -490,23 +494,13 @@ def _floor_div(a: torch.Tensor, b: int) -> torch.Tensor:
 
 @dataclasses.dataclass(eq=False)
 class ExtractYear(Expr):
-    """year(date): Hinnant's civil-from-days in int64 with floor division
-    (days before 1970 are negative)."""
+    """year(date), through `_civil_from_days`."""
     child: Expr
 
     def eval(self, ctx):
         ct = self.child.eval(ctx)
         assert ct.dtype.id == TypeId.DATE
-        z = ct.array.to(torch.int64) + 719468
-        era = _floor_div(z, 146097)
-        doe = z - era * 146097
-        yoe = _floor_div(doe - _floor_div(doe, 1460) + _floor_div(doe, 36524)
-                         - _floor_div(doe, 146096), 365)
-        y = yoe + era * 400
-        doy = doe - (365 * yoe + _floor_div(yoe, 4) - _floor_div(yoe, 100))
-        mp = _floor_div(5 * doy + 2, 153)
-        # months 1 and 2 (mp 10, 11) belong to the next civil year
-        y = y + (mp >= 10).to(torch.int64)
+        y = _civil_from_days(ct.array)[0]
         return Typed(y, INT64, None, ct.valid, domain=_year_domain(ct.domain))
 
 
@@ -605,23 +599,251 @@ class IsNull(Expr):
         return Typed(~t.valid, BOOL, None)
 
 
-# ------------------------------------------------- not ported in this slice
+@dataclasses.dataclass(eq=False)
+class ValidIf(Expr):
+    """The child's values, NULL wherever `cond` is not true.  The binder
+    gives aggregate rewrites exact NULL semantics with it (stddev over
+    n <= 1 rows is NULL, not NaN)."""
+    child: Expr
+    cond: Expr
 
-class _NotPorted(Expr):
-    """An expression the binder can emit but this port does not run yet:
-    constructing it raises, so a query that needs it fails by name."""
+    def eval(self, ctx):
+        t = self.child.eval(ctx)
+        m = as_mask(self.cond.eval(ctx))
+        v = m if t.valid is None else (t.valid & m)
+        return Typed(t.array, t.dtype, t.dictionary, v)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__}: not ported yet")
+
+def _civil_from_days(days: torch.Tensor):
+    """days since the epoch -> (year, month, day): Hinnant's civil-from-days
+    in int64 with floor division (days before 1970 are negative)."""
+    z = days.to(torch.int64) + 719468
+    era = _floor_div(z, 146097)
+    doe = z - era * 146097
+    yoe = _floor_div(doe - _floor_div(doe, 1460) + _floor_div(doe, 36524)
+                     - _floor_div(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floor_div(yoe, 4) - _floor_div(yoe, 100))
+    mp = _floor_div(5 * doy + 2, 153)
+    d = doy - _floor_div(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
 
 
-class ValidIf(_NotPorted): pass
-class ExtractField(_NotPorted): pass
-class StrMap(_NotPorted): pass
-class StrLen(_NotPorted): pass
-class Concat(_NotPorted): pass
-class MathFn(_NotPorted): pass
+@dataclasses.dataclass(eq=False)
+class ExtractField(Expr):
+    """extract(year|month|day FROM date) and its date_part forms."""
+    field: str
+    child: Expr
+
+    def eval(self, ctx):
+        ct = self.child.eval(ctx)
+        assert ct.dtype.id == TypeId.DATE
+        host = _is_host_scalar(ct.array)
+        y, m, d = _civil_from_days(torch.tensor(int(ct.array)) if host
+                                   else ct.array)
+        out = {"year": y, "month": m, "day": d}[self.field]
+        if host:
+            out = int(out)
+        if self.field == "year":
+            dom = _year_domain(ct.domain)
+        else:
+            dom = np.arange(1, 13 if self.field == "month" else 32,
+                            dtype=np.int64)
+        return Typed(out, INT64, None, ct.valid, domain=dom)
+
+
+def _dict_strs(d) -> list[str]:
+    """Dictionary entries as Python str (dictionaries are stored as |S)."""
+    return [s.decode("utf-8", "replace") if isinstance(s, bytes) else str(s)
+            for s in d]
+
+
+def _gather_codes(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
+    """table[codes] on the codes' device: a host lut applied per row."""
+    return torch.as_tensor(table, device=codes.device)[_wide(codes)]
+
+
+@dataclasses.dataclass(eq=False)
+class StrMap(Expr):
+    """Per-dictionary-entry string transform (upper/lower/trim/ltrim/rtrim):
+    the entries map on the host, and the device work is one int32 gather
+    through the code remap."""
+    child: Expr
+    op: str
+
+    _FNS = {"upper": str.upper, "lower": str.lower, "trim": str.strip,
+            "ltrim": str.lstrip, "rtrim": str.rstrip}
+
+    def eval(self, ctx):
+        ct = self.child.eval(ctx)
+        fn = self._FNS[self.op]
+        if ct.dtype.id == TypeId.CHAR1:
+            # 256-entry byte lut
+            lut = np.arange(256, dtype=np.int32)
+            for b in range(256):
+                s = fn(chr(b))
+                lut[b] = ord(s) if len(s) == 1 else (0 if not s else b)
+            return Typed(_gather_codes(lut, ct.array).to(ct.array.dtype),
+                         ct.dtype, None, ct.valid)
+        assert ct.dtype.id == TypeId.VARCHAR and ct.dictionary is not None, \
+            f"{self.op}() needs a dictionary-encoded varchar"
+        mapped = np.array([fn(s) for s in _dict_strs(ct.dictionary)],
+                          dtype="S")
+        new_dict, remap = np.unique(mapped, return_inverse=True)
+        return Typed(_gather_codes(remap.astype(np.int32), ct.array),
+                     VARCHAR, new_dict, ct.valid)
+
+
+@dataclasses.dataclass(eq=False)
+class StrLen(Expr):
+    """length(varchar) through a per-code length table."""
+    child: Expr
+
+    def eval(self, ctx):
+        ct = self.child.eval(ctx)
+        if ct.dtype.id == TypeId.CHAR1:
+            return Typed(torch.ones_like(ct.array, dtype=torch.int64), INT64,
+                         None, ct.valid)
+        assert ct.dtype.id == TypeId.VARCHAR and ct.dictionary is not None
+        lens = np.array([len(s) for s in _dict_strs(ct.dictionary)],
+                        np.int64)
+        return Typed(_gather_codes(lens, ct.array), INT64, None, ct.valid)
 
 
 class ExpressionError(ValueError):
     """A value-dependent expression failure (as in the reference)."""
+
+
+@dataclasses.dataclass(eq=False)
+class Concat(Expr):
+    """String concatenation (a || b) as a dictionary product: every pair of
+    entries on the host, then one gather by (left code, right code).
+
+    The product is bounded by a budget; past it the entries are built only
+    for the code pairs that occur (one host pass over the codes), and a
+    literal operand past it raises."""
+    left: Expr
+    right: Expr
+    MAX_DICT = 1 << 20
+
+    def eval(self, ctx):
+        lt, rt = self.left.eval(ctx), self.right.eval(ctx)
+        ld, lc = self._as_literal_or_col(lt)
+        rd, rc = self._as_literal_or_col(rt)
+        if len(ld) * len(rd) > self.MAX_DICT:
+            if lc is None or rc is None:
+                raise ExpressionError(
+                    f"concat dictionary would have {len(ld) * len(rd)} "
+                    f"entries (budget {self.MAX_DICT}); reduce operand "
+                    f"cardinality")
+            return self._observed_pairs(lt, rt, ld, rd, lc, rc)
+        pairs = np.array([a + b for a in ld for b in rd], dtype="S")
+        new_dict, remap = np.unique(pairs, return_inverse=True)
+        remap = remap.reshape(len(ld), len(rd)).astype(np.int32)
+        if lc is None and rc is None:
+            return Typed(int(remap[0, 0]), VARCHAR, new_dict, None)
+        if lc is None:
+            codes = _gather_codes(remap[0], rc)
+        elif rc is None:
+            codes = _gather_codes(remap[:, 0], lc)
+        else:
+            codes = torch.as_tensor(remap, device=lc.device)[_wide(lc),
+                                                             _wide(rc)]
+        return Typed(codes, VARCHAR, new_dict, and_valid(lt.valid, rt.valid))
+
+    def _observed_pairs(self, lt, rt, ld, rd, lc, rc):
+        """Dictionary entries only for the code pairs that occur."""
+        pair = (_wide(lc) * len(rd) + _wide(rc)).cpu().numpy()
+        upairs, inverse = np.unique(pair, return_inverse=True)
+        if len(upairs) > self.MAX_DICT:
+            raise ExpressionError(
+                f"concat produces {len(upairs)} distinct strings "
+                f"(budget {self.MAX_DICT})")
+        entries = np.array(
+            [ld[int(p) // len(rd)] + rd[int(p) % len(rd)] for p in upairs],
+            dtype="S")
+        new_dict, remap = np.unique(entries, return_inverse=True)
+        codes = torch.as_tensor(remap.astype(np.int32)[inverse],
+                                device=lc.device)
+        return Typed(codes, VARCHAR, new_dict, and_valid(lt.valid, rt.valid))
+
+    @classmethod
+    def _as_literal_or_col(cls, t: Typed):
+        if t.dtype.id == TypeId.VARCHAR and t.dictionary is not None:
+            return _dict_strs(t.dictionary), t.array
+        if t.dtype.id == TypeId.CHAR1:
+            return [chr(b) for b in range(256)], t.array.to(torch.int32)
+        # a string literal evaluates to a host str
+        if isinstance(getattr(t, "array", None), str):
+            return [t.array], None
+        raise AssertionError("concat needs varchar/char operands")
+
+
+def _math(torch_fn, np_fn, *xs):
+    """A float function over tensors, or over host scalars (literal
+    operands stay host values, as the other expressions keep them)."""
+    if all(_is_host_scalar(x) for x in xs):
+        with np.errstate(all="ignore"):
+            return float(np_fn(*(np.float64(x) for x in xs)))
+    dev = _device_of(*xs)
+    return torch_fn(*(_as_tensor(x, dev) for x in xs))
+
+
+@dataclasses.dataclass(eq=False)
+class MathFn(Expr):
+    """sqrt/abs/floor/ceil/round/exp/ln/log*/trig/power: scalar math, in
+    float64 except abs of integers and round of decimals, which stay exact.
+    round of a DOUBLE rounds half to even."""
+    op: str
+    child: Expr
+    digits: int = 0
+    other: Expr | None = None   # power(x, y)'s second operand
+
+    _UNARY = {"exp": (torch.exp, np.exp), "ln": (torch.log, np.log),
+              "log": (torch.log10, np.log10), "log2": (torch.log2, np.log2),
+              "log10": (torch.log10, np.log10), "sin": (torch.sin, np.sin),
+              "cos": (torch.cos, np.cos), "tan": (torch.tan, np.tan),
+              "sqrt": (torch.sqrt, np.sqrt), "floor": (torch.floor, np.floor),
+              "ceil": (torch.ceil, np.ceil)}
+
+    def eval(self, ctx):
+        t = self.child.eval(ctx)
+        if self.op == "abs":
+            if t.dtype.id in (TypeId.INT32, TypeId.INT64, TypeId.DECIMAL):
+                a = t.array
+                return Typed(abs(a) if _is_host_scalar(a)
+                             else torch.abs(_wide(a)), t.dtype, None, t.valid)
+            return Typed(_math(torch.abs, np.abs, _as_double(t)), DOUBLE,
+                         None, t.valid)
+        x = _as_double(t)
+        if self.op in self._UNARY:
+            return Typed(_math(*self._UNARY[self.op], x), DOUBLE, None,
+                         t.valid)
+        if self.op == "power":
+            o = self.other.eval(ctx)
+            return Typed(_math(torch.pow, np.power, x, _as_double(o)),
+                         DOUBLE, None, and_valid(t.valid, o.valid))
+        if self.op == "round":
+            if t.dtype.id == TypeId.DECIMAL and self.digits <= t.dtype.scale:
+                # a decimal stays exact: rescale in int64, adding half of
+                # the dropped unit with the value's sign, then flooring
+                drop = t.dtype.scale - self.digits
+                if drop == 0:
+                    return t
+                p = 10 ** drop
+                a = t.array
+                if _is_host_scalar(a):
+                    out = (int(a) + (p // 2 if a >= 0 else -(p // 2))) // p
+                else:
+                    a = _wide(a)
+                    half = torch.where(a >= 0, p // 2, -(p // 2))
+                    out = _floor_div(a + half, p)
+                return Typed(out, DataType(TypeId.DECIMAL, self.digits),
+                             None, t.valid)
+            f = 10.0 ** self.digits
+            return Typed(_math(lambda v: torch.round(v * f) / f,
+                               lambda v: np.round(v * f) / f, x),
+                         DOUBLE, None, t.valid)
+        raise ValueError(self.op)

@@ -10,9 +10,12 @@ FK-dense and sort-based grouping), HashJoin (the direct-address PK path,
 whose probe and build-value fetch go through the monotone gather kernel of
 `ops/probe.py`; the reverse-PK semi join; and the general sort-merge paths
 of `ops/join.py`: single match, expansion, LEFT / FULL OUTER, SEMI / ANTI,
-multi-column keys), OrderBy and Limit.  Operators that later slices port
-exist by name for the shared binder and optimizer, and raise
-NotImplementedError.
+multi-column keys), OrderBy and Limit; and the operators the binder emits
+for subqueries and sources: MarkJoin (EXISTS / IN with a residual),
+BroadcastScalar (uncorrelated scalar subqueries), SingleRow (no FROM),
+RangeSource (range() / generate_series()) and Materialized.  Operators that
+later slices port (windows, range and asof joins) exist by name for the
+shared binder and optimizer, and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -165,12 +168,7 @@ class _NotPorted(PhysicalOperator):
 
 class RangeJoin(_NotPorted): name = "range_join"
 class AsofJoin(_NotPorted): name = "asof_join"
-class MarkJoin(_NotPorted): name = "mark_join"
-class BroadcastScalar(_NotPorted): name = "broadcast_scalar"
 class Window(_NotPorted): name = "window"
-class Materialized(_NotPorted): name = "materialized"
-class RangeSource(_NotPorted): name = "range_source"
-class SingleRow(_NotPorted): name = "single_row"
 
 
 class WindowFunc:
@@ -194,6 +192,9 @@ def static_base_table(op: PhysicalOperator) -> str | None:
         if op.join_type in ("semi", "anti") or (
                 op.single_match and not getattr(op, "_force_expand", False)):
             return static_base_table(op.children[0])
+    if isinstance(op, (MarkJoin, BroadcastScalar)):
+        # mask-preserving: output rows stay aligned to the probe/child rows
+        return static_base_table(op.children[0])
     return None
 
 
@@ -365,6 +366,57 @@ def _expr_columns(expr: Expr) -> set[str]:
                 walk(v)
     walk(expr)
     return out
+
+
+def _source_device(ctx: ExecContext) -> torch.device:
+    """The device of a source that reads no table: the catalog's."""
+    dev = getattr(ctx.catalog, "device", None)
+    if dev is None:
+        raise ValueError("the catalog names no device (open it through "
+                         "api.Connection)")
+    return dev
+
+
+class RangeSource(PhysicalOperator):
+    """range(start, stop, step) table function: a generated integer
+    column."""
+
+    name = "range_source"
+
+    def __init__(self, start: int, stop: int, step: int, colname: str):
+        super().__init__()
+        if step == 0:
+            raise ValueError("range() step must not be 0")
+        self.start, self.stop, self.step = start, stop, step
+        self.colname = colname
+        self.n = max(0, -(-(stop - start) // step))
+
+    def _execute(self, ctx):
+        dev = _source_device(ctx)
+        cap = pad_count(max(1, self.n))
+        slots = torch.arange(cap, dtype=torch.int64, device=dev)
+        return Relation({self.colname: RelColumn(slots * self.step
+                                                 + self.start, INT64, None)},
+                        slots < self.n, cap)
+
+    def _self_signature(self):
+        return (f"range[{self.start}:{self.stop}:{self.step}:"
+                f"{self.colname}]")
+
+
+class SingleRow(PhysicalOperator):
+    """One-row, zero-column source: SELECT <exprs> without FROM."""
+
+    name = "single_row"
+
+    def _execute(self, ctx):
+        n = 8192
+        mask = torch.zeros(n, dtype=torch.bool, device=_source_device(ctx))
+        mask[0] = True
+        return Relation({}, mask, n)
+
+    def _self_signature(self):
+        return "single_row"
 
 
 class Filter(PhysicalOperator):
@@ -847,6 +899,46 @@ class HashJoin(PhysicalOperator):
                 f"ov={getattr(self, '_cap_override', None)};"
                 f"fe={getattr(self, '_force_expand', False)};"
                 f"nkp={getattr(self, '_no_kernel_probe', False)}]")
+
+
+class BroadcastScalar(PhysicalOperator):
+    """Attach a 1-row subplan's columns to every row of the child: the
+    uncorrelated scalar subquery.  The value, its presence (the subplan's
+    row may be absent: an empty input) and its validity stay device tensors,
+    broadcast as stride-0 views, so the consuming filter runs with no host
+    round trip.  names: {output column name: subplan column name}."""
+
+    name = "broadcast_scalar"
+
+    def __init__(self, child: PhysicalOperator, sub: PhysicalOperator,
+                 names: dict[str, str]):
+        super().__init__([child, sub])
+        self.names = dict(names)
+
+    def is_pipeline_breaker(self):
+        return True
+
+    def blocking_children(self):
+        return [self.children[1]]
+
+    def _execute(self, ctx):
+        rel = self.children[0].execute(ctx)
+        sub = self.children[1].execute(ctx)
+        cols = dict(rel.columns)
+        present = sub.mask[0]
+        for out_name, sub_name in self.names.items():
+            c = sub.columns[sub_name]
+            valid = present if c.valid is None else (present & c.valid[0])
+            cols[out_name] = RelColumn(c.array[0].expand(rel.capacity),
+                                       c.dtype, c.dictionary, c.domain,
+                                       valid.expand(rel.capacity))
+        return Relation(cols, rel.mask, rel.capacity)
+
+    def _self_signature(self):
+        return f"broadcast_scalar[{sorted(self.names.items())}]"
+
+    def describe(self):
+        return f"broadcast_scalar({list(self.names)})"
 
 
 @dataclasses.dataclass
@@ -1469,3 +1561,112 @@ class Limit(PhysicalOperator):
 
     def _self_signature(self):
         return f"limit[{self.limit}]"
+
+
+class Materialized(PhysicalOperator):
+    """Placeholder for a relation the executor injects into `ctx._cache`
+    (the out-of-core merge pass); run without one, it raises."""
+
+    name = "materialized"
+
+    def _execute(self, ctx):
+        raise RuntimeError("materialized input was not injected")
+
+
+class MarkJoin(PhysicalOperator):
+    """Subquery mark join: EXISTS / IN with residual correlated predicates.
+
+    The probe relation keeps its shape, and each probe row gets a mark:
+    whether any build row matches the equi keys AND satisfies the residual.
+    The residual may read probe columns (by name) and build columns (under
+    `build_prefix`); it is evaluated over the expanded (probe row, build
+    row) pairs of `ops/join.py` at a static capacity, whose undershoot is
+    the recoverable `expansion` check (the executor doubles the capacity
+    and runs again).  A scatter-any brings the pairs' verdicts back to probe
+    rows.  Output: the probe masked by the mark (negated for NOT EXISTS),
+    or, with `mark_column`, the mark as a BOOL column (for OR / CASE).
+    """
+
+    name = "mark_join"
+
+    def __init__(self, probe: PhysicalOperator, build: PhysicalOperator,
+                 probe_keys: Sequence[str], build_keys: Sequence[str],
+                 residual: Expr | None = None, negated: bool = False,
+                 build_prefix: str = "__mark_",
+                 out_capacity: int | None = None,
+                 mark_column: str | None = None):
+        super().__init__([probe, build])
+        self.probe_keys = list(probe_keys)
+        self.build_keys = list(build_keys)
+        self.residual = residual
+        self.negated = negated
+        self.build_prefix = build_prefix
+        self.out_capacity = out_capacity
+        self.mark_column = mark_column
+
+    def is_pipeline_breaker(self):
+        return True
+
+    def blocking_children(self):
+        return [self.children[1]]
+
+    def _execute(self, ctx):
+        probe_rel = self.children[0].execute(ctx)
+        build_rel = self.children[1].execute(ctx)
+        bkey = _combine_keys(ctx, build_rel, self.build_keys)
+        pkey = _combine_keys(ctx, probe_rel, self.probe_keys)
+        bs = join_ops.build(bkey, build_rel.mask)
+        entry = join_ops.probe(bs, pkey, probe_rel.mask)
+        cap = getattr(self, "_cap_override", None) or self.out_capacity
+        if cap is None:
+            factor = (ctx.config.join_expansion_factor
+                      if ctx.config is not None else 1.0)
+            cap = pad_count(int(probe_rel.capacity * factor))
+        out_probe, out_build, total = join_ops.expand_matches(
+            bs.starts, bs.counts, bs.sorted_rows, entry, probe_rel.mask, cap)
+        ctx.add_check(self, "expansion", total <= cap, cap)
+        ok = (torch.arange(cap, device=entry.device) < total) & \
+            (out_probe >= 0)
+        if len(self.probe_keys) > 2:
+            ok = _exact_key_eq(probe_rel, build_rel, self.probe_keys,
+                               self.build_keys, out_probe, out_build, ok)
+        if self.residual is not None:
+            ok = ok & as_mask(self._pairs(probe_rel, build_rel, out_probe,
+                                          out_build, ok, cap).evaluate(
+                                              self.residual))
+        mark = _scatter_flags(probe_rel.capacity, out_probe.clamp(min=0), ok)
+        if self.negated:
+            mark = ~mark
+        if self.mark_column is not None:
+            cols = dict(probe_rel.columns)
+            cols[self.mark_column] = RelColumn(mark, BOOL, None)
+            return Relation(cols, probe_rel.mask, probe_rel.capacity)
+        return probe_rel.with_mask(probe_rel.mask & mark)
+
+    def _pairs(self, probe_rel, build_rel, out_probe, out_build, ok, cap):
+        """The residual's columns gathered at the expanded pairs: probe
+        columns by name, build columns under `build_prefix` (row ids
+        clamped, as the padding slots hold -1)."""
+        needed = _expr_columns(self.residual)
+        safe_p = torch.clamp(out_probe, 0, probe_rel.capacity - 1)
+        safe_b = torch.clamp(out_build, 0, build_rel.capacity - 1)
+        cols: dict[str, RelColumn] = {}
+        for prefix, rel, safe in (("", probe_rel, safe_p),
+                                  (self.build_prefix, build_rel, safe_b)):
+            for n, c in rel.columns.items():
+                if prefix + n in needed:
+                    cols[prefix + n] = RelColumn(
+                        c.array[safe], c.dtype, c.dictionary, c.domain,
+                        None if c.valid is None else c.valid[safe])
+        return Relation(cols, ok, cap)
+
+    def _self_signature(self):
+        return (f"mark_join[{self.probe_keys};{self.build_keys};"
+                f"{self.residual!r};neg={self.negated};{self.out_capacity};"
+                f"{self.build_prefix};mc={self.mark_column};"
+                f"ov={getattr(self, '_cap_override', None)}]")
+
+    def describe(self):
+        kind = "not_exists" if self.negated else "exists"
+        return (f"mark_join({kind}, {self.probe_keys}={self.build_keys},"
+                f" residual={self.residual is not None})")

@@ -1,0 +1,290 @@
+"""Non-SELECT statements: DDL, INSERT, SET, PRAGMA, EXPLAIN.
+
+Counterpart of `duckdb_cubit_tpu/sql/statements.py`, built on the port's
+storage (`storage/table.from_numpy`, `storage/dml.append_rows`), indexes
+and `EngineConfig`.  Each statement that changes a table bumps its version
+(or replaces it), so the executor's prepare cache never serves a plan built
+for the old table.
+
+Statements and settings the port does not run yet raise
+NotImplementedError by name instead of being accepted and ignored: DELETE,
+UPDATE, BEGIN / COMMIT / ROLLBACK, EXPLAIN ANALYZE and PRAGMA
+enable_verification; and a SELECT while `enable_verification`,
+`force_external` or `query_timeout_s > 0` is set.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..exec import result as R
+from ..index.cubit import CubitIndex
+from ..index.pk import DirectPKIndex
+from ..storage import dml
+from ..storage.table import from_numpy
+from ..types import (BOOL, CHAR1, DATE, DOUBLE, INT32, INT64, VARCHAR,
+                     DataType, TypeId, date_to_days, decimal_to_int)
+from . import ast as A
+
+
+class StatementError(ValueError):
+    pass
+
+
+def refuse_unported_settings(config):
+    """Raise, by name, on a setting whose execution mode the port lacks: a
+    query under it would otherwise run without what the setting asks."""
+    if config.enable_verification:
+        raise NotImplementedError("enable_verification: not ported yet")
+    if config.force_external:
+        raise NotImplementedError("force_external: not ported yet")
+    if config.query_timeout_s > 0:
+        raise NotImplementedError("query_timeout_s: not ported yet")
+
+
+_TYPE_MAP = {
+    "integer": INT32, "int": INT32, "int4": INT32, "smallint": INT32,
+    "bigint": INT64, "int8": INT64, "hugeint": INT64,
+    "double": DOUBLE, "float": DOUBLE, "real": DOUBLE, "float8": DOUBLE,
+    "date": DATE,
+    "varchar": VARCHAR, "text": VARCHAR, "string": VARCHAR,
+    "boolean": BOOL, "bool": BOOL,
+}
+
+
+def _column_type(cd: A.ColumnDef) -> DataType:
+    t = cd.type_name
+    if t in ("decimal", "numeric"):
+        scale = cd.params[1] if len(cd.params) > 1 else 2
+        return DataType(TypeId.DECIMAL, scale)
+    if t == "char":
+        if cd.params and cd.params[0] == 1:
+            return CHAR1
+        return VARCHAR
+    if t in _TYPE_MAP:
+        return _TYPE_MAP[t]
+    raise StatementError(f"unsupported column type {t}")
+
+
+def _empty_np(dtype: DataType) -> np.ndarray:
+    if dtype.id == TypeId.VARCHAR:
+        return np.array([], dtype="S1")
+    return np.array([], dtype=dtype.np_dtype)
+
+
+def _literal_value(node, dtype: DataType):
+    """A literal (or signed literal) INSERT value in the column's host
+    representation."""
+    neg = False
+    while isinstance(node, A.UnaryOp) and node.op == "-":
+        neg = not neg
+        node = node.child
+    if isinstance(node, A.CastExpr):
+        node = node.child
+    if not isinstance(node, A.Literal):
+        raise StatementError(f"INSERT values must be literals, got {node!r}")
+    v = node.value
+    if v is None:
+        return None
+    if dtype.id == TypeId.DECIMAL:
+        out = decimal_to_int(v, dtype.scale)
+        return -out if neg else out
+    if dtype.id == TypeId.DATE:
+        return date_to_days(str(v))
+    if dtype.id == TypeId.VARCHAR:
+        return str(v).encode()
+    if dtype.id == TypeId.CHAR1:
+        s = str(v)
+        if len(s) != 1:
+            raise StatementError(f"CHAR(1) literal {v!r} not one char")
+        return ord(s)
+    if dtype.id == TypeId.DOUBLE:
+        out = float(v)
+        return -out if neg else out
+    if dtype.id == TypeId.BOOL:
+        return bool(v) if not isinstance(v, str) else v.lower() == "true"
+    out = int(v)
+    return -out if neg else out
+
+
+def _create_table_as(conn, stmt):
+    if stmt.name in conn.catalog.tables:
+        raise StatementError(f"table {stmt.name} already exists")
+    refuse_unported_settings(conn.config)
+    rel = conn.executor.execute(conn.binder.bind(stmt.select))
+    mask = rel.mask.cpu().numpy()
+    data, schema, nullmasks = {}, {}, {}
+    for cname, c in rel.columns.items():
+        arr = c.array.cpu().numpy()[mask]
+        if c.valid is not None:
+            nm = ~c.valid.cpu().numpy()[mask]
+            if nm.any():
+                nullmasks[cname] = nm
+        if c.dictionary is not None:
+            data[cname] = np.asarray(c.dictionary)[arr]
+        else:
+            data[cname] = arr
+            schema[cname] = c.dtype
+    t = from_numpy(stmt.name, data, schema or None, device=conn.device)
+    for cname, nm in nullmasks.items():
+        col = t.columns[cname]
+        col.nulls_host = nm
+        padded = np.zeros(t.capacity, bool)
+        padded[: len(nm)] = nm
+        col.nulls = torch.as_tensor(padded, device=conn.device)
+    conn.catalog.register(t)
+    return f"CREATE TABLE {stmt.name} AS ({t.num_rows} rows)", []
+
+
+def _create_index(conn, stmt):
+    table = conn.catalog.table(stmt.table)
+    col = table.columns[stmt.column]
+    host = col.host[: table.num_rows] if col.host is not None else \
+        col.data[: table.num_rows].cpu().numpy()
+    dev = table.device
+    if stmt.using == "pk":
+        pk = DirectPKIndex.build(stmt.column, host, table.num_rows,
+                                 device=dev)
+        if pk is None:
+            raise StatementError(
+                f"{stmt.column} unsuitable for a direct PK index")
+        table.pk_indexes[stmt.column] = pk
+    else:
+        if col.dictionary is not None:
+            idx = CubitIndex.build(stmt.column, host.astype(np.int32),
+                                   table.capacity, table.num_rows,
+                                   max(len(col.dictionary), 1), device=dev)
+        elif stmt.n_bins is not None:
+            vals = host.astype(np.int64)
+            lo = int(vals.min()) if len(vals) else 0
+            hi = int(vals.max()) + 1 if len(vals) else 1
+            edges = np.unique(np.linspace(
+                lo, hi, stmt.n_bins + 1).astype(np.int64))[:-1]
+            idx = CubitIndex.build(stmt.column, vals, table.capacity,
+                                   table.num_rows, len(edges),
+                                   bin_edges=edges, device=dev)
+        else:
+            values = np.unique(host.astype(np.int64))
+            if len(values) > (1 << 16):
+                raise StatementError(
+                    f"{stmt.column}: {len(values)} distinct values; give "
+                    f"WITH (bins=N) to bin the bitmap index")
+            idx = CubitIndex.build(stmt.column, host.astype(np.int64),
+                                   table.capacity, table.num_rows,
+                                   max(len(values), 1), bin_edges=values,
+                                   device=dev)
+        table.indexes[stmt.column] = idx
+    table.version += 1
+    return f"CREATE INDEX on {stmt.table}({stmt.column})", []
+
+
+def _insert(conn, stmt):
+    table = conn.catalog.table(stmt.table)
+    if stmt.select is not None:
+        raise StatementError("INSERT ... SELECT not supported yet")
+    cols = stmt.columns or list(table.columns.keys())
+    if set(cols) != set(table.columns.keys()):
+        raise StatementError("INSERT must provide every column")
+    rows, nulls = {}, {}
+    for pos, cname in enumerate(cols):
+        dtype = table.columns[cname].dtype
+        vals = [_literal_value(r[pos], dtype) for r in stmt.rows]
+        nmask = np.array([v is None for v in vals])
+        if nmask.any():
+            # a placeholder under each NULL (masked everywhere)
+            filler = b"" if dtype.id == TypeId.VARCHAR else 0
+            vals = [filler if v is None else v for v in vals]
+            nulls[cname] = nmask
+        if dtype.id == TypeId.VARCHAR:
+            rows[cname] = np.array(vals, dtype="S")
+        else:
+            rows[cname] = np.array(vals, dtype=dtype.np_dtype)
+    first = dml.append_rows(table, rows, nulls=nulls or None)
+    return f"INSERT {len(stmt.rows)} (first rowid {first})", []
+
+
+def _explain(conn, stmt):
+    if stmt.analyze:
+        raise NotImplementedError("EXPLAIN ANALYZE: not ported yet")
+    from ..plan import optimizer as opt
+
+    plan = opt.optimize(conn.binder.bind(stmt.query), conn.catalog)
+    lines = []
+
+    def walk(op, d):
+        lines.append("  " * d + op.describe())
+        for c in op.children:
+            walk(c, d + 1)
+
+    walk(plan, 0)
+    return "EXPLAIN", [[line] for line in lines]
+
+
+# PRAGMAs the reference accepts as no-ops: harness knobs (thread-count
+# stress, profiler output routing) with no counterpart in the engine
+_NOOP_PRAGMAS = ("verify_parallelism", "disable_verify_parallelism",
+                 "enable_profiling", "disable_profiling", "explain_output",
+                 "verify_external", "disable_verify_external")
+
+
+def _pragma(conn, stmt):
+    name = stmt.name.lower()
+    if name == "tpch":
+        from ..tpch import queries
+
+        return "PRAGMA tpch", R.to_strings(
+            queries.run(conn.executor, int(stmt.args[0])))
+    if name == "enable_verification":
+        raise NotImplementedError("PRAGMA enable_verification: not ported "
+                                  "yet")
+    if name == "disable_verification":
+        conn.config.enable_verification = False
+        return f"PRAGMA {name}", []
+    if name in _NOOP_PRAGMAS:
+        return f"PRAGMA {name}", []
+    raise StatementError(f"unknown pragma {stmt.name}")
+
+
+def _drop_table(conn, stmt):
+    if stmt.name not in conn.catalog.tables:
+        if stmt.if_exists:
+            return "DROP TABLE (skipped)", []
+        raise StatementError(f"unknown table {stmt.name}")
+    conn.catalog.drop(stmt.name)
+    return f"DROP TABLE {stmt.name}", []
+
+
+def _create_table(conn, stmt):
+    if stmt.name in conn.catalog.tables:
+        raise StatementError(f"table {stmt.name} already exists")
+    schema = {cd.name: _column_type(cd) for cd in stmt.columns}
+    data = {cd.name: _empty_np(schema[cd.name]) for cd in stmt.columns}
+    conn.catalog.register(from_numpy(stmt.name, data, schema,
+                                     device=conn.device))
+    return f"CREATE TABLE {stmt.name}", []
+
+
+def _set(conn, stmt):
+    conn.config.set(stmt.name, stmt.value)
+    return f"SET {stmt.name} = {stmt.value}", []
+
+
+_HANDLERS = {A.CreateTable: _create_table, A.CreateTableAs: _create_table_as,
+             A.CreateIndex: _create_index,
+             A.Insert: _insert, A.DropTable: _drop_table, A.SetStmt: _set,
+             A.ExplainStmt: _explain, A.PragmaStmt: _pragma}
+
+
+def execute_statement(conn, stmt):
+    """Execute a non-SELECT statement; -> (status string, rows)."""
+    if isinstance(stmt, (A.Delete, A.Update)):
+        raise NotImplementedError(
+            f"{type(stmt).__name__.upper()}: not ported yet")
+    if isinstance(stmt, A.TransactionStmt):
+        raise NotImplementedError(
+            f"{stmt.kind.upper()}: transactions are not ported yet")
+    handler = _HANDLERS.get(type(stmt))
+    if handler is None:
+        raise StatementError(f"unhandled statement {type(stmt).__name__}")
+    return handler(conn, stmt)

@@ -1,0 +1,189 @@
+"""Appends with index maintenance: INSERT's path.
+
+Counterpart of `duckdb_cubit_tpu/storage/dml.py`'s `append_rows` and
+`_refresh_stats`.  An append writes the new rows into fresh column tensors
+(grown, copied and padded when the capacity runs out), remaps a VARCHAR
+column's codes when new strings arrive (dictionaries stay sorted), extends
+the per-column NULL masks, buffers one CUBIT insert delta per row and
+publishes it with one merge per index (or rebuilds the index when the
+capacity or the code space changed), rebuilds every direct PK index (which
+drops its cached value luts), refreshes zone maps and domains, and bumps
+the table's version, so no prepared plan built for the old table is served
+again.  Tensors are never written in place: a reader of the previous
+version keeps a consistent snapshot.
+
+Deleted-row masks, `delete_rows` and `update_column` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..index.cubit import CubitIndex
+from ..index.pk import DirectPKIndex
+from ..types import TypeId
+from .table import Table, _build_zone_map, _int_domain, pad_count
+
+
+class DmlError(RuntimeError):
+    pass
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    return np.dtype(str(t.dtype).removeprefix("torch."))
+
+
+def _host(col, num_rows: int) -> np.ndarray:
+    return (col.host[:num_rows] if col.host is not None
+            else col.data[:num_rows].cpu().numpy())
+
+
+def append_rows(table: Table, rows: dict[str, np.ndarray],
+                nulls: dict[str, np.ndarray] | None = None) -> int:
+    """Append host rows; returns the first new row id.
+
+    `nulls[col]` marks the NULL slots of the appended rows."""
+    n_new = len(next(iter(rows.values())))
+    first = table.num_rows
+    new_count = first + n_new
+    grow = new_count > table.capacity
+    new_capacity = pad_count(new_count) if grow else table.capacity
+    dev = table.device
+    remapped_dict_cols = []
+    for name, col in table.columns.items():
+        vals = rows[name]
+        if col.dictionary is not None:
+            # codes are order-preserving (ordered string predicates, LIKE
+            # truth tables and CUBIT dictionary bins rely on it), so new
+            # strings re-encode: the merged sorted dictionary, and one
+            # device gather remaps the stored codes
+            vals_b = np.array([v if isinstance(v, bytes) else str(v).encode()
+                               for v in np.asarray(vals)], dtype="S")
+            old_dict = col.dictionary
+            width = max(old_dict.dtype.itemsize, vals_b.dtype.itemsize, 1)
+            merged = np.unique(np.concatenate(
+                [old_dict.astype(f"S{width}"), vals_b.astype(f"S{width}")]))
+            if len(merged) != len(old_dict):
+                old_to_new = np.searchsorted(
+                    merged, old_dict.astype(f"S{width}")).astype(np.int32)
+                if len(old_to_new):
+                    col.data = torch.as_tensor(old_to_new, device=dev)[
+                        col.data.to(torch.int64)]
+                    if col.host is not None:
+                        col.host = old_to_new[col.host]
+                col.dictionary = merged
+                remapped_dict_cols.append(name)
+            codes = np.searchsorted(
+                merged, vals_b.astype(f"S{width}")).astype(np.int32)
+            dt = _np_dtype(col.data)
+            if dt.kind == "i" and dt.itemsize < 4 and \
+                    len(merged) >= np.iinfo(dt).max:
+                col.data = col.data.to(torch.int32)
+                if col.host is not None:
+                    col.host = col.host.astype(np.int32)
+            host_new = codes.astype(_np_dtype(col.data))
+        else:
+            vals_np = np.asarray(vals)
+            dt = _np_dtype(col.data)
+            if dt.kind == "i" and dt.itemsize < 8 and vals_np.size:
+                info = np.iinfo(dt)
+                v64 = vals_np.astype(np.int64)
+                if int(v64.max()) >= info.max or int(v64.min()) <= info.min:
+                    # narrowed storage cannot hold the appended values:
+                    # widen the column back
+                    col.data = col.data.to(torch.int64)
+                    if col.host is not None:
+                        col.host = col.host.astype(np.int64)
+            host_new = vals_np.astype(_np_dtype(col.data))
+        if col.host is not None:
+            col.host = np.concatenate([col.host, host_new])
+        data = col.data
+        if grow:
+            data = torch.cat([data, data[-1:].expand(
+                new_capacity - table.capacity)])
+        else:
+            data = data.clone()
+        data[first:new_count] = torch.as_tensor(host_new, device=dev)
+        col.data = data
+        # the per-column NULL mask, extended and refreshed
+        new_nulls = None if nulls is None else nulls.get(name)
+        if new_nulls is not None and new_nulls.any() or \
+                col.nulls is not None:
+            old_h = (col.nulls_host if col.nulls_host is not None
+                     else np.zeros(first, bool))
+            nh = np.zeros(new_count, bool)
+            nh[:first] = old_h[:first]
+            if new_nulls is not None:
+                nh[first:new_count] = new_nulls
+            col.nulls_host = nh
+            padded = np.zeros(new_capacity, bool)
+            padded[:new_count] = nh
+            col.nulls = torch.as_tensor(padded, device=dev)
+        col.is_sorted = False
+        # index deltas (not for remapped dictionary columns, whose bins live
+        # in the old code space: rebuilt below)
+        idx = table.indexes.get(name)
+        if idx is not None and name not in remapped_dict_cols:
+            for i in range(n_new):
+                idx.insert(first + i, host_new[i])
+    table.num_rows = new_count
+    if grow:
+        # a new capacity changes the bitmap word counts: rebuild
+        for name, idx in list(table.indexes.items()):
+            host = _host(table.columns[name], new_count)
+            table.indexes[name] = CubitIndex.build(
+                name, host if idx.bin_edges is not None
+                else host.astype(np.int32),
+                new_capacity, new_count, idx.n_bins, bin_edges=idx.bin_edges,
+                device=dev)
+        table.capacity = new_capacity
+    else:
+        for idx in table.indexes.values():
+            if idx.pending_updates:
+                idx.merge()
+    # a dictionary remap moves the code-space bitmap bins: rebuild
+    for name in remapped_dict_cols:
+        if name in table.indexes:
+            col = table.columns[name]
+            table.indexes[name] = CubitIndex.build(
+                name, col.host.astype(np.int32), table.capacity,
+                table.num_rows, len(col.dictionary), device=dev)
+    # PK indexes are rebuilt (a cheap host build), dropping the value luts
+    # cached on the old index
+    for cname in list(table.pk_indexes):
+        pk = DirectPKIndex.build(cname, _host(table.columns[cname],
+                                              new_count),
+                                 new_count, device=dev)
+        if pk is None:
+            raise DmlError(f"append broke PK uniqueness on {cname}")
+        table.pk_indexes[cname] = pk
+    _refresh_stats(table)
+    table.version += 1
+    return first
+
+
+def _refresh_stats(table: Table, columns=None):
+    """Recompute zone maps and small-int domains from the host mirrors after
+    a mutation: stale statistics would make the optimizer's always-false
+    pruning and the dense-aggregate domain decision wrong."""
+    names = columns if columns is not None else list(table.columns)
+    for name in names:
+        col = table.columns[name]
+        if col.zone_map is None and col.domain is None and \
+                col.dtype.id == TypeId.DOUBLE:
+            continue
+        host = _host(col, table.num_rows)
+        if col.nulls_host is not None:
+            host = host[~col.nulls_host[:table.num_rows]]
+        if table.num_rows == 0 or len(host) == 0:
+            col.zone_map = None
+            col.domain = None
+            continue
+        if col.dtype.id in (TypeId.INT32, TypeId.INT64, TypeId.DECIMAL,
+                            TypeId.DATE, TypeId.VARCHAR, TypeId.CHAR1):
+            col.zone_map = _build_zone_map(host, len(host))
+        if col.dtype.id == TypeId.CHAR1:
+            col.domain = np.unique(host)
+        elif col.domain is not None or col.zone_map is not None:
+            col.domain = _int_domain(col.zone_map, col.dtype)

@@ -306,6 +306,9 @@ class Catalog:
         # device placement tag, kept for parity with the reference (the
         # port has no mesh placement yet)
         self.placement = "default"
+        # the device of sources that read no table (SELECT without FROM,
+        # range()); api.Connection sets it to its own
+        self.device: torch.device | None = None
 
     def register(self, table: Table):
         self.tables[table.name] = table

@@ -13,7 +13,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["types.py", "config.py", "sql/lexer.py", "sql/ast.py",
           "sql/parser.py", "sql/binder.py", "tpch/schema.py",
-          "plan/optimizer.py", "tpch/dists.json"]
+          "plan/optimizer.py", "tpch/dists.json", "tpch/answers.py",
+          "testing/__init__.py", "testing/sqllogic.py"]
 
 
 def _body(path: str) -> list[str]:

@@ -1,7 +1,9 @@
 """The torch port runs without jax: the machine with the card has none.
 
 A fresh interpreter imports the port's API, runs Q6 at SF0.01 on the CPU,
-and must never have loaded jax or the reference package.
+runs statements (CREATE TABLE, INSERT, CREATE INDEX, SET), the TPC-H SQL
+text of Q21 and one sqllogic file through the port's runner, and must never
+have loaded jax or the reference package.
 """
 
 import os
@@ -20,6 +22,19 @@ rows = conn.sql('''
       AND l_shipdate < CAST('1995-01-01' AS date)
       AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24
 ''').strings()
+conn.sql("CREATE TABLE t (k INTEGER, s VARCHAR)")
+conn.sql("INSERT INTO t VALUES (1, 'a'), (2, NULL)")
+conn.sql("CREATE INDEX ON t(k)")
+conn.sql("SET small_group_limit = 16")
+assert conn.sql("SELECT count(s) AS c FROM t").strings() == [["1"]]
+from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
+assert conn.sql(SQL[21]).strings()[0] == ["Supplier#000000074", "9"]
+from duckdb_cubit_tpu_torch.testing.sqllogic import run_file
+assert run_file("tests/sqllogic/joins.test",
+                conn=api.Connection(device="cpu")).executed > 0
+for m in ("sql.statements", "storage.dml", "tpch.sql_queries",
+          "testing.sqllogic", "tpch.answers"):
+    assert "duckdb_cubit_tpu_torch." + m in sys.modules, m
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "duckdb_cubit_tpu"))
 print(rows, loaded)
