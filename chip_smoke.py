@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch + CUDA port: TPC-H Q6, Q1, Q12 and Q3 through
 the public API, all 22 TPC-H plan builders, the 22 TPC-H SQL texts, the
-sqllogic files the port runs, then the reference's three benchmark entry
-points.
+sqllogic files the port runs, window functions and range / ASOF joins over
+the catalog, the reference's three benchmark entry points, then DML under a
+transaction, a checkpoint and a restart.
 
     python3 chip_smoke.py            # SF1 (6,001,215 lineitem rows)
     python3 chip_smoke.py --sf 10    # SF10
@@ -77,7 +78,18 @@ raises on failure (non-zero exit):
   7. sqllogic: each file of `testing/sqllogic_gate.FILES` through the
      port's copy of the sqllogic runner on a fresh `Connection()` (the
      card);
-  8. timing: each query end to end (median of warm runs), the device busy
+  8. windows, range and ASOF joins (`tpch/analytic_sql.py`) through
+     `conn.sql` on the card, each with the launch counts set to 0 just
+     before it and read just after, held cell by cell against the port's
+     run on the CPU catalog of phase 5: W1 (lineitem, a partition per
+     order: row_number, the running SUM, a sliding MAX over ROWS, LAG with
+     a default), W2 (orders, a partition per customer: rank() and a 90-day
+     RANGE frame), R1 (lineitem against 84 monthly date bands: two bounds
+     and a residual), A1 (each order's previous order by the same
+     customer, inner and LEFT); W1 and A1 also against numpy oracles.  Per
+     query the rows, the retries, the warm median and the profiled device
+     time with its top kernels;
+  9. timing: each query end to end (median of warm runs), the device busy
      share of each from torch.profiler with its top device kernels, the
      device time of the PK probe's prelude beside K2's, and each kernel
      alone against its plain version at the main path's shapes with the L2
@@ -85,7 +97,7 @@ raises on failure (non-zero exit):
      and the one PyTorch call that computes the same function, where there
      is one; K2's 2- and 4-lut passes against the one-lut launches they
      replaced;
-  9. entry points, each with every launch count set to 0 just before it
+ 10. entry points, each with every launch count set to 0 just before it
      and read just after, on the catalog already loaded:
      `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
      K4 must launch; then K3 on all-zero words and K4 on an all-zero mask,
@@ -97,12 +109,27 @@ raises on failure (non-zero exit):
      their time at N = 2**22 after a clean-L2 flush) and `bench` (32 Q6
      variants and the l_orderkey ->
      orders probes; K1 and K2 must launch).  Each checks its own results
-     and prints its times.
+     and prints its times;
+ 11. DML, transactions and persistence, last because it mutates the
+     catalog: BEGIN; UPDATE of l_discount over about 1% of lineitem (Q6
+     equal to its numpy oracle over the mutated columns, K1 launches once);
+     UPDATE of o_shippriority (a column Q3's K2 pass fetches through a
+     value lut) around Q3's top order (Q3 equal to its oracle, its first
+     row showing the new value, K2 launches); DELETE of about 1/7 of orders
+     (Q12, Q3); DELETE of lineitem rows with l_quantity > 45 (Q1, Q6; K1
+     does not launch); ROLLBACK (all four equal their rows from before,
+     K1 launches again); a checkpoint of the whole catalog, a committed
+     DELETE in the write-ahead log, and `open_database(path,
+     device="cuda")`, whose Q1, Q6 and Q3 equal the first connection's.
+     Each statement's time, the checkpoint's seconds and bytes and the
+     reopen's seconds are printed.
 
 The kernel table is one JSON line (each kernel's `launches` sums the main
-path's runs: the four SQL queries, the 22 plans and the 22 SQL texts, split
-in `launches_by_path` as "sql", "tpch_plans" and "tpch_sql"), then the card's name and power limit; the last line
-is {"ok": true, "device": {...}}.
+path's runs: the four SQL queries, the 22 plans, the 22 SQL texts, the
+window / join queries and the DML phase's queries, split in
+`launches_by_path` as "sql", "tpch_plans", "tpch_sql", "windows" and
+"dml"), then the card's name and power limit; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -209,25 +236,37 @@ DOUBLE_RTOL = 1e-9
 RUNS = 20
 # warm runs behind each TPC-H plan's median
 RUNS_PLANS = 10
+# warm runs behind each window / range / ASOF query's median
+RUNS_WINDOWS = 10
 
 
 def phase(name: str):
     print(f"== {name}", flush=True)
 
 
-def oracle_q6(lineitem, ship_lo: str, qty_lt_cents: int) -> str:
-    """Q6 from the host columns with numpy: independent of both engines."""
+def live_columns(table, names) -> dict:
+    """Host int64 columns of a table's live rows (its deleted rows left
+    out), from the host mirrors every DML statement keeps current."""
+    n = table.num_rows
+    keep = None if table.deleted is None else \
+        ~table.deleted[:n].cpu().numpy()
+    out = {}
+    for name in names:
+        a = table.columns[name].host[:n].astype(np.int64)
+        out[name] = a if keep is None else a[keep]
+    return out
+
+
+def oracle_q6(li: dict, ship_lo: str, qty_lt_cents: int) -> str:
+    """Q6 from host columns with numpy: independent of both engines."""
     from duckdb_cubit_tpu_torch.exec.result import format_decimal
     from duckdb_cubit_tpu_torch.types import date_to_days
 
-    col = {n: c.host.astype(np.int64) for n, c in lineitem.columns.items()
-           if n in ("l_shipdate", "l_discount", "l_quantity",
-                    "l_extendedprice")}
-    sel = ((col["l_shipdate"] >= date_to_days(ship_lo))
-           & (col["l_shipdate"] < date_to_days("1995-01-01"))
-           & (col["l_discount"] >= 5) & (col["l_discount"] <= 7)
-           & (col["l_quantity"] < qty_lt_cents))
-    total = int((col["l_extendedprice"][sel] * col["l_discount"][sel]).sum())
+    sel = ((li["l_shipdate"] >= date_to_days(ship_lo))
+           & (li["l_shipdate"] < date_to_days("1995-01-01"))
+           & (li["l_discount"] >= 5) & (li["l_discount"] <= 7)
+           & (li["l_quantity"] < qty_lt_cents))
+    total = int((li["l_extendedprice"][sel] * li["l_discount"][sel]).sum())
     return format_decimal(total, 4)
 
 
@@ -290,14 +329,11 @@ def _code(table, column: str, value: str) -> int:
     return i
 
 
-def oracle_q1(lineitem) -> list[list]:
-    """Q1 from the host columns with numpy; DOUBLE cells as floats."""
+def oracle_q1(c: dict) -> list[list]:
+    """Q1 from host columns with numpy; DOUBLE cells as floats."""
     from duckdb_cubit_tpu_torch.exec.result import format_decimal
     from duckdb_cubit_tpu_torch.types import date_to_days
 
-    c = {n: lineitem.columns[n].host.astype(np.int64)
-         for n in ("l_returnflag", "l_linestatus", "l_shipdate", "l_quantity",
-                   "l_extendedprice", "l_discount", "l_tax")}
     sel = c["l_shipdate"] <= date_to_days("1998-09-02")
     rows = []
     for rf in np.unique(c["l_returnflag"][sel]):
@@ -319,69 +355,87 @@ def oracle_q1(lineitem) -> list[list]:
     return rows
 
 
-def _orders_row_of(orders, keys: np.ndarray) -> np.ndarray:
-    okey = orders.columns["o_orderkey"].host.astype(np.int64)
-    lut = np.full(int(okey.max()) + 1, -1, np.int64)
-    lut[okey] = np.arange(len(okey))
+def _row_of(keys_of_rows: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """The row holding each key (-1 where none does)."""
+    lut = np.full(int(max(keys_of_rows.max(), keys.max())) + 1, -1, np.int64)
+    lut[keys_of_rows] = np.arange(len(keys_of_rows))
     return lut[keys]
 
 
-def oracle_q12(lineitem, orders) -> list[list]:
-    """Q12 from the host columns with numpy (join through a key lut)."""
+def oracle_q12(li: dict, od: dict, codes: dict) -> list[list]:
+    """Q12 from host columns with numpy (the join through a key lut; a
+    lineitem row whose order is gone matches nothing)."""
     from duckdb_cubit_tpu_torch.types import date_to_days
 
-    li = {n: lineitem.columns[n].host.astype(np.int64)
-          for n in ("l_orderkey", "l_shipmode", "l_shipdate", "l_commitdate",
-                    "l_receiptdate")}
-    prio = orders.columns["o_orderpriority"].host.astype(np.int64)[
-        _orders_row_of(orders, li["l_orderkey"])]
-    high = np.isin(prio, [_code(orders, "o_orderpriority", "1-URGENT"),
-                          _code(orders, "o_orderpriority", "2-HIGH")])
-    sel = ((li["l_commitdate"] < li["l_receiptdate"])
+    row = _row_of(od["o_orderkey"], li["l_orderkey"])
+    prio = od["o_orderpriority"][np.maximum(row, 0)]
+    high = np.isin(prio, codes["high"])
+    sel = ((row >= 0) & (li["l_commitdate"] < li["l_receiptdate"])
            & (li["l_shipdate"] < li["l_commitdate"])
            & (li["l_receiptdate"] >= date_to_days("1994-01-01"))
            & (li["l_receiptdate"] < date_to_days("1995-01-01")))
     rows = []
     for mode in ("MAIL", "SHIP"):
-        m = sel & (li["l_shipmode"] == _code(lineitem, "l_shipmode", mode))
+        m = sel & (li["l_shipmode"] == codes[mode])
         rows.append([mode, str(int((m & high).sum())),
                      str(int((m & ~high).sum()))])
     return rows
 
 
-def oracle_q3(customer, orders, lineitem) -> list[list]:
-    """Q3 from the host columns with numpy (lineitem is sorted by
-    l_orderkey, so a group is a run)."""
+def oracle_q3(cu: dict, od: dict, li: dict, building: int) -> list[list]:
+    """Q3 from host columns with numpy (lineitem is sorted by l_orderkey,
+    so a group is a run)."""
     from duckdb_cubit_tpu_torch.exec.result import format_decimal
     from duckdb_cubit_tpu_torch.types import date_to_days, days_to_date
 
-    if not lineitem.columns["l_orderkey"].is_sorted:
+    lk = li["l_orderkey"]
+    if not np.all(lk[1:] >= lk[:-1]):
         raise AssertionError("lineitem is not sorted by l_orderkey")
-    cust = customer.columns["c_custkey"].host.astype(np.int64)
-    seg = customer.columns["c_mktsegment"].host
-    building = np.zeros(int(cust.max()) + 1, bool)
-    building[cust[seg == _code(customer, "c_mktsegment", "BUILDING")]] = True
-    okey = orders.columns["o_orderkey"].host.astype(np.int64)
-    odate = orders.columns["o_orderdate"].host.astype(np.int64)
-    oship = orders.columns["o_shippriority"].host.astype(np.int64)
-    ocust = orders.columns["o_custkey"].host.astype(np.int64)
+    is_building = np.zeros(int(cu["c_custkey"].max()) + 1, bool)
+    is_building[cu["c_custkey"][cu["c_mktsegment"] == building]] = True
+    okey, odate = od["o_orderkey"], od["o_orderdate"]
     cut = date_to_days("1995-03-15")
-    order_ok = np.zeros(int(okey.max()) + 1, bool)
-    order_ok[okey[(odate < cut) & building[ocust]]] = True
-    lk = lineitem.columns["l_orderkey"].host.astype(np.int64)
-    sel = (lineitem.columns["l_shipdate"].host.astype(np.int64) > cut) \
-        & order_ok[lk]
+    order_ok = np.zeros(int(max(okey.max(), lk.max())) + 1, bool)
+    order_ok[okey[(odate < cut) & is_building[od["o_custkey"]]]] = True
+    sel = (li["l_shipdate"] > cut) & order_ok[lk]
     keys = lk[sel]
-    rev = lineitem.columns["l_extendedprice"].host.astype(np.int64)[sel] * (
-        100 - lineitem.columns["l_discount"].host.astype(np.int64)[sel])
+    rev = li["l_extendedprice"][sel] * (100 - li["l_discount"][sel])
     starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
     sums = np.add.reduceat(rev, starts)
     ukeys = keys[starts]
-    orow = _orders_row_of(orders, ukeys)
+    orow = _row_of(okey, ukeys)
     top = np.lexsort((odate[orow], -sums))[:10]
     return [[str(int(ukeys[i])), format_decimal(int(sums[i]), 4),
              days_to_date(int(odate[orow[i]])).isoformat(),
-             str(int(oship[orow[i]]))] for i in top]
+             str(int(od["o_shippriority"][orow[i]]))] for i in top]
+
+
+LI_COLS = ("l_orderkey", "l_linenumber", "l_quantity", "l_extendedprice",
+           "l_discount", "l_tax", "l_returnflag", "l_linestatus",
+           "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode")
+ORDER_COLS = ("o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
+              "o_shippriority", "o_totalprice")
+
+
+def oracle_of(cat, name: str) -> list[list]:
+    """The numpy oracle of Q6 / Q1 / Q12 / Q3 over the catalog's live rows
+    as they are now (after any DML)."""
+    lineitem, orders = cat.table("lineitem"), cat.table("orders")
+    li = live_columns(lineitem, LI_COLS)
+    if name == "Q6":
+        return [[oracle_q6(li, "1994-01-01", 2400)]]
+    if name == "Q1":
+        return oracle_q1(li)
+    od = live_columns(orders, ORDER_COLS)
+    if name == "Q12":
+        return oracle_q12(li, od, {
+            "high": [_code(orders, "o_orderpriority", "1-URGENT"),
+                     _code(orders, "o_orderpriority", "2-HIGH")],
+            "MAIL": _code(lineitem, "l_shipmode", "MAIL"),
+            "SHIP": _code(lineitem, "l_shipmode", "SHIP")})
+    customer = cat.table("customer")
+    return oracle_q3(live_columns(customer, ("c_custkey", "c_mktsegment")),
+                     od, li, _code(customer, "c_mktsegment", "BUILDING"))
 
 
 def rows_agree(got: list[list], want: list[list]) -> bool:
@@ -516,7 +570,8 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
     print(json.dumps({"tpch_plans": out}))
     print("HashJoin paths the 22 plans do not take at this SF:")
     general_joins(conn, cpu, card)
-    return {"launches": totals, "queries": out, "rows": card_rows}
+    return {"launches": totals, "queries": out, "rows": card_rows,
+            "cpu": cpu}
 
 
 def tpch_sql(conn, plans: dict, card: str) -> dict:
@@ -680,6 +735,235 @@ def general_joins(conn, cpu, card: str):
         print(f"{label}: {rows[0]}, equal to the CPU run; retries "
               f"{retried}; {wall:.3f} ms on the card, retries included  "
               f"[{card}]")
+
+
+def oracle_w1(li: dict) -> list[list]:
+    """W1 with numpy: per order (sorted by l_orderkey, l_linenumber) the row
+    number, the running SUM of the price, the MAX of the quantity over the
+    row and its neighbours, and the LAG of the quantity (0 first)."""
+    from duckdb_cubit_tpu_torch.exec.result import format_decimal
+
+    o = np.lexsort((li["l_linenumber"], li["l_orderkey"]))
+    key, price, qty = (li[n][o] for n in ("l_orderkey", "l_extendedprice",
+                                           "l_quantity"))
+    n = len(key)
+    first = np.r_[True, key[1:] != key[:-1]]
+    last = np.r_[key[1:] != key[:-1], True]
+    start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+    rn = np.arange(n) - start + 1
+    csum = np.cumsum(price)
+    rs = csum - np.where(start > 0, csum[np.maximum(start - 1, 0)], 0)
+    prev = np.where(first, qty, np.r_[qty[:1], qty[:-1]])
+    nxt = np.where(last, qty, np.r_[qty[1:], qty[-1:]])
+    mq = np.maximum(np.maximum(prev, qty), nxt)
+    lg = np.where(first, 0, np.r_[0, qty[:-1]])
+    return [[str(n), str(int(rn.sum())), format_decimal(int(rs.sum()), 2),
+             format_decimal(int(mq.sum()), 2),
+             format_decimal(int(lg.sum()), 2)]]
+
+
+def oracle_a1(od: dict) -> tuple[list[list], list[list]]:
+    """A1 and its LEFT form with numpy: each order's latest earlier order of
+    the same customer (among equal dates the last in row order, as the
+    join's stable sort leaves them)."""
+    from duckdb_cubit_tpu_torch.exec.result import format_decimal
+
+    cust, date, price = od["o_custkey"], od["o_orderdate"], \
+        od["o_totalprice"]
+    enc = (cust << 20) | date
+    o = np.lexsort((np.arange(len(enc)), enc))
+    pos = np.searchsorted(enc[o], enc, side="left") - 1
+    hit = (pos >= 0) & (cust[o][np.maximum(pos, 0)] == cust)
+    total = int(price[o][np.maximum(pos, 0)][hit].sum())
+    return ([[str(int(hit.sum())), format_decimal(total, 2)]],
+            [[str(len(enc))]])
+
+
+def windows_and_joins(conn, cpu, card: str) -> dict:
+    """W1, W2, R1 and A1 (`tpch/analytic_sql.py`) through `conn.sql` on the
+    card, each with every launch count set to 0 just before it and read
+    just after, held cell by cell against the port's run on the CPU catalog
+    of the TPC-H plans phase; W1 and A1 also against numpy oracles.  Per
+    query: the rows, the retries, the median of warm wall times and the
+    profiled device time with its top kernels.  -> {"launches": {kernel:
+    total}, "queries": [per-query row]}."""
+    from duckdb_cubit_tpu_torch.tpch import analytic_sql as S
+    from duckdb_cubit_tpu_torch.types import TypeId
+
+    for c in (conn, cpu):
+        for stmt in S.month_bands():
+            c.sql(stmt)
+    cat = conn.catalog
+    oracles = {"W1": oracle_w1(live_columns(cat.table("lineitem"),
+                                            LI_COLS))}
+    oracles["A1"], oracles["A1_LEFT"] = oracle_a1(
+        live_columns(cat.table("orders"), ORDER_COLS))
+    totals = {"fused_scan_sum": 0, "monotone_gather": 0}
+    out = []
+    for name, sql in S.QUERIES.items():
+        def run(sql=sql):
+            res = conn.sql(sql)
+            return res.relation, res.strings()
+        retries = conn.executor.retry_count
+        (rel, rows), counts = counted(run)
+        retried = conn.executor.retry_count - retries
+        t1 = time.perf_counter()
+        want = cpu.sql(sql).strings()
+        cpu_s = time.perf_counter() - t1
+        doubles = [c.dtype.id == TypeId.DOUBLE for c in rel.columns.values()]
+        if not cells_agree(rows, want, doubles):
+            raise AssertionError(f"{name} on the card disagrees with the CPU "
+                                 f"run: {rows[:3]} vs {want[:3]}")
+        if name in oracles and rows != oracles[name]:
+            raise AssertionError(f"{name} disagrees with the numpy oracle: "
+                                 f"{rows} vs {oracles[name]}")
+        for kernel in totals:
+            totals[kernel] += counts[kernel]
+        times = []
+        for _ in range(RUNS_WINDOWS + 2):
+            t1 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t1) * 1e3)
+        median = statistics.median(times[2:])
+        dev_ms, wall_ms, top = device_busy_share(run, 3)
+        checked = "the CPU run" + (" and the numpy oracle"
+                                   if name in oracles else "")
+        print(f"{name}: {len(rows)} rows, equal to {checked} ({cpu_s:.2f} s "
+              f"on the CPU); K1 {counts['fused_scan_sum']}, K2 "
+              f"{counts['monotone_gather']}, retries {retried}; median "
+              f"{median:.3f} ms over {RUNS_WINDOWS} warm runs; profiled: "
+              f"device kernels {dev_ms:.4f} ms of {wall_ms:.4f} ms wall, busy "
+              f"share {dev_ms / wall_ms:.4f}  [{card}]")
+        print(f"  top device kernels per query: {top}")
+        for row in rows[:3]:
+            print("   ", row)
+        out.append({"query": name, "rows": len(rows), "retries": retried,
+                    "median_ms": median, "device_ms": dev_ms,
+                    "profiled_wall_ms": wall_ms})
+    print(json.dumps({"windows_and_joins": out}))
+    return {"launches": totals, "queries": out}
+
+
+def dml_transactions_persistence(conn, card: str) -> dict:
+    """DELETE / UPDATE inside a transaction on the card catalog, each query
+    after them against the numpy oracle of the mutated columns, ROLLBACK,
+    then a checkpoint of the whole catalog, a committed DELETE in the
+    write-ahead log and `open_database` on the card.  Every query has the
+    launch counts set to 0 just before it and read just after.
+    -> {"launches": {kernel: total}, "steps": [...]}."""
+    import shutil
+    import tempfile
+
+    from duckdb_cubit_tpu_torch.storage.persist import open_database
+
+    cat = conn.catalog
+    queries = {"Q6": Q6, "Q1": Q1, "Q12": Q12, "Q3": Q3}
+    totals = {"fused_scan_sum": 0, "monotone_gather": 0}
+    steps = []
+
+    def statement(sql):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        status = conn.sql(sql).status
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"  {status}: {' '.join(sql.split())[:90]} ({secs:.3f} s)  "
+              f"[{card}]")
+        steps.append({"sql": " ".join(sql.split()), "status": status,
+                      "seconds": secs})
+        return status
+
+    def query(name, want=None, k1=None, k2_min=0, c=conn):
+        rows, counts = counted(lambda: c.sql(queries[name]).strings())
+        against = "its numpy oracle" if want is None else "the rows"
+        want = oracle_of(c.catalog, name) if want is None else want
+        if not rows_agree(rows, want):
+            raise AssertionError(f"{name} after DML disagrees: {rows[:3]} "
+                                 f"vs {want[:3]}")
+        if k1 is not None and counts["fused_scan_sum"] != k1:
+            raise AssertionError(f"{name} launched K1 "
+                                 f"{counts['fused_scan_sum']} times, "
+                                 f"expected {k1}")
+        if counts["monotone_gather"] < k2_min:
+            raise AssertionError(f"{name} did not launch K2")
+        for kernel in totals:
+            totals[kernel] += counts[kernel]
+        print(f"  {name}: {rows[0]}{' ...' if len(rows) > 1 else ''}, equal "
+              f"to {against}; K1 "
+              f"{counts['fused_scan_sum']}, K2 {counts['monotone_gather']}")
+        return rows
+
+    print("step 1: the rows before")
+    base = {name: conn.sql(sql).strings() for name, sql in queries.items()}
+    sf = cat.table("lineitem").num_rows / 6_001_215
+    print("step 2: BEGIN; UPDATE about 1% of lineitem")
+    statement("BEGIN")
+    statement(f"UPDATE lineitem SET l_discount = l_discount + 0.01 WHERE "
+              f"l_orderkey <= {int(60000 * sf)} AND l_discount < 0.10")
+    query("Q6", k1=1)
+    print("step 3: UPDATE about 1% of orders on a value-lut column of Q3")
+    top = int(base["Q3"][0][0])
+    statement(f"UPDATE orders SET o_shippriority = 1 WHERE o_orderkey "
+              f"BETWEEN {top - int(30000 * sf)} AND {top + int(30000 * sf)}")
+    rows = query("Q3", k2_min=1)
+    if rows[0][0] != str(top) or rows[0][3] != "1":
+        raise AssertionError(f"Q3's first row {rows[0]} does not show the "
+                             f"updated o_shippriority of order {top}")
+    print("step 4: DELETE about 1/7 of orders")
+    statement("DELETE FROM orders WHERE o_orderdate < DATE '1993-01-01'")
+    query("Q12", k2_min=1)
+    query("Q3", k2_min=1)
+    print("step 5: DELETE lineitem rows with l_quantity > 45")
+    statement("DELETE FROM lineitem WHERE l_quantity > 45")
+    query("Q1")
+    query("Q6", k1=0)
+    print("step 6: ROLLBACK")
+    statement("ROLLBACK")
+    for name in queries:
+        query(name, want=base[name], k1=1 if name == "Q6" else None)
+    print("step 7: checkpoint, then a committed DELETE in the log")
+    path = tempfile.mkdtemp(prefix="chip_smoke_db_")
+    try:
+        conn.attach(path)
+        t0 = time.perf_counter()
+        conn.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        print(f"  checkpoint of {len(cat.tables)} tables: {ckpt_s:.2f} s, "
+              f"{disk} B on disk  [{card}]")
+        statement("BEGIN")
+        statement(f"DELETE FROM lineitem WHERE l_orderkey <= "
+                  f"{int(60000 * sf)}")
+        statement("COMMIT")
+        with open(os.path.join(path, "wal.sql")) as f:
+            logged = f.read().count(";\n")
+        if logged != 1:
+            raise AssertionError(f"the log holds {logged} statements")
+        after = {name: query(name) for name in ("Q1", "Q6", "Q3")}
+        print("step 8: open_database on the card")
+        t0 = time.perf_counter()
+        conn2 = open_database(path, device="cuda")
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        print(f"  open_database (checkpoint + log replay): {open_s:.2f} s  "
+              f"[{card}]")
+        if not all(c.data.is_cuda for t in conn2.catalog.tables.values()
+                   for c in t.columns.values()):
+            raise AssertionError("the reopened catalog is not on the card")
+        for name in ("Q1", "Q6", "Q3"):
+            query(name, want=after[name], c=conn2)
+        del conn2
+    finally:
+        conn.db_path = None
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"DML, transactions and persistence: every step equals its oracle; "
+          f"launches {totals}; checkpoint {ckpt_s:.2f} s, {disk} B; open "
+          f"{open_s:.2f} s  [{card}]")
+    out = {"steps": steps, "checkpoint_s": ckpt_s, "checkpoint_bytes": disk,
+           "open_s": open_s}
+    print(json.dumps({"dml": out}))
+    return {"launches": totals, **out}
 
 
 def k2_parity_cases():
@@ -1266,7 +1550,7 @@ def main() -> int:
     launches = {}
     rows, counts = counted(lambda: conn.sql(Q6).strings(), "fused_scan_sum")
     launches["fused_scan_sum"] = counts["fused_scan_sum"]
-    expect = oracle_q6(lineitem, "1994-01-01", 2400)
+    expect = oracle_of(cat, "Q6")[0][0]
     print(f"Q6 = {rows}, numpy oracle = {expect}, K1 launches = "
           f"{launches['fused_scan_sum']}")
     if rows != [[expect]]:
@@ -1275,15 +1559,11 @@ def main() -> int:
     if known is not None and expect != known:
         raise AssertionError(f"Q6 {expect} != known answer {known}")
     rows2 = conn.sql(Q6_OFF_EDGE).strings()
-    expect2 = oracle_q6(lineitem, "1994-01-10", 2350)
+    expect2 = oracle_q6(live_columns(lineitem, LI_COLS), "1994-01-10", 2350)
     print(f"Q6 off-edge = {rows2}, numpy oracle = {expect2}")
     if rows2 != [[expect2]]:
         raise AssertionError("off-edge Q6 disagrees with the numpy oracle")
 
-    oracles = {"Q1": lambda: oracle_q1(lineitem),
-               "Q12": lambda: oracle_q12(lineitem, orders),
-               "Q3": lambda: oracle_q3(cat.table("customer"), orders,
-                                       lineitem)}
     # luts of each K2 launch: one launch per PK join on sorted keys, with
     # the row lut and every value lut the join reads
     k2_luts = {"Q1": [], "Q12": [2], "Q3": [4]}
@@ -1292,7 +1572,7 @@ def main() -> int:
         print(conn.explain(sql))
         rows, counts = counted(lambda: conn.sql(sql).strings())
         k2_launches = counts["monotone_gather"]
-        want = oracles[name]()
+        want = oracle_of(cat, name)
         print(f"{name}: {len(rows)} rows, K2 launches = {k2_launches}")
         for row in rows[:4]:
             print("   ", row)
@@ -1331,12 +1611,8 @@ def main() -> int:
     texts = tpch_sql(conn, plans, card)
     phase("sqllogic")
     sqllogic_on_card(card)
-    by_path = {name: {"sql": launches[name],
-                      "tpch_plans": plans["launches"][name],
-                      "tpch_sql": texts["launches"][name]}
-               for name in plans["launches"]}
-    for name, paths in by_path.items():
-        launches[name] = sum(paths.values())
+    phase(f"windows, range and ASOF joins at SF{args.sf:g}")
+    windows = windows_and_joins(conn, plans.pop("cpu"), card)
 
     phase("timing")
     print("card:", card)
@@ -1449,6 +1725,17 @@ def main() -> int:
     print(json.dumps(line))
     print(f"bench launches: K1 {counts['fused_scan_sum']}, K2 "
           f"{counts['monotone_gather']}")
+    # last: it mutates the catalog every earlier phase read
+    phase(f"DML, transactions and persistence at SF{args.sf:g}")
+    dml = dml_transactions_persistence(conn, card)
+    by_path = {name: {"sql": launches[name],
+                      "tpch_plans": plans["launches"][name],
+                      "tpch_sql": texts["launches"][name],
+                      "windows": windows["launches"][name],
+                      "dml": dml["launches"][name]}
+               for name in plans["launches"]}
+    for name, paths in by_path.items():
+        launches[name] = sum(paths.values())
 
     table = [{"name": name, "route": "cuda",
               "source": f"duckdb_cubit_tpu_torch/csrc/{name}.cu",

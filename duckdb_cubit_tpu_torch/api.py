@@ -3,13 +3,19 @@
 Counterpart of `duckdb_cubit_tpu/api.py`: `Connection.sql()` drives parse ->
 bind -> optimize -> execute over the port's device tensors for a SELECT, and
 hands every other statement to `sql/statements.py` (CREATE TABLE [AS],
-CREATE INDEX, INSERT, DROP, SET, EXPLAIN, PRAGMA).  The device is the card
-unless the caller asks for another: `connect(sf)` and `Connection(...)`
-default to `device="cuda"` (and raise where there is no card; nothing falls
-back to the CPU), `device="cpu"` runs the plain torch bodies.  Every table of
-the catalog must live on the connection's device.  DELETE, UPDATE,
-transactions, persistence, prepared statements and meshes come later: the
-statements raise NotImplementedError by name.
+CREATE INDEX, INSERT, DELETE, UPDATE, DROP, SET, BEGIN / COMMIT / ROLLBACK,
+EXPLAIN, PRAGMA).  The device is the card unless the caller asks for
+another: `connect(sf)` and `Connection(...)` default to `device="cuda"` (and
+raise where there is no card; nothing falls back to the CPU),
+`device="cpu"` runs the plain torch bodies.  Every table of the catalog must
+live on the connection's device.
+
+A transaction is a catalog snapshot (`Catalog.snapshot`): ROLLBACK restores
+it.  Durability (`storage/persist.py`): after `attach(path)` every DDL / DML
+statement that succeeds, CREATE TABLE AS included, is appended to the
+directory's write-ahead log (inside a transaction, buffered until COMMIT),
+and `checkpoint()` writes the catalog and truncates the log.  Prepared
+statements and meshes come later.
 """
 
 from __future__ import annotations
@@ -18,8 +24,14 @@ import torch
 
 from .exec import result as R
 from .exec.executor import Executor
+from .sql import ast as A
 from .sql.binder import Binder
 from .storage.table import Catalog, from_numpy
+
+# the statements the write-ahead log records (CREATE TABLE AS included: the
+# reference leaves it out, so its tables were lost on restart)
+_LOGGED = (A.CreateTable, A.CreateTableAs, A.CreateIndex, A.Insert, A.Delete,
+           A.Update, A.DropTable)
 
 
 class Result:
@@ -64,6 +76,34 @@ class Connection:
         self.config = config if config is not None else EngineConfig()
         self.executor = Executor(self.catalog, self.config)
         self.binder = Binder(self.catalog, self.executor)
+        self._txn_snapshot = None
+        self._txn_wal: list[str] | None = None
+        # the durable directory (storage/persist.py), None when in memory
+        self.db_path: str | None = None
+        self._wal_replaying = False
+
+    def attach(self, path: str):
+        """Make the connection durable under `path`: later DDL / DML go to
+        its write-ahead log.  ":memory:" keeps it in memory (no directory is
+        made; the reference creates one named ":memory:")."""
+        import os
+
+        if path == ":memory:":
+            self.db_path = None
+            return self
+        os.makedirs(path, exist_ok=True)
+        self.db_path = path
+        return self
+
+    def checkpoint(self, path: str | None = None):
+        """Write the catalog to disk and truncate the write-ahead log."""
+        from .storage.persist import checkpoint
+
+        target = path or self.db_path
+        if target is None:
+            raise ValueError("no database path: attach(path) first")
+        checkpoint(self, target)
+        self.db_path = target
 
     def _check_device(self, catalog: Catalog):
         for t in catalog.tables.values():
@@ -87,7 +127,6 @@ class Connection:
 
     # ------------------------------------------------------------- querying
     def sql(self, query: str) -> Result:
-        from .sql import ast as A
         from .sql import statements
         from .sql.parser import parse_statement
 
@@ -96,7 +135,43 @@ class Connection:
             statements.refuse_unported_settings(self.config)
             return Result(self.executor.execute(self.binder.bind(stmt)))
         status, rows = statements.execute_statement(self, stmt)
+        if (self.db_path and not self._wal_replaying
+                and isinstance(stmt, _LOGGED)):
+            # logged only once the statement succeeded; inside a transaction
+            # the entries wait for COMMIT, so a rolled-back statement never
+            # reaches the log
+            if self._txn_wal is not None:
+                self._txn_wal.append(query)
+            else:
+                from .storage.persist import wal_append
+
+                wal_append(self.db_path, query)
         return Result(None, status=status, static_rows=rows)
+
+    # ------------------------------------------------------- transactions
+    def begin(self):
+        if self._txn_snapshot is not None:
+            raise RuntimeError("transaction already active")
+        self._txn_snapshot = self.catalog.snapshot()
+        self._txn_wal = []
+
+    def commit(self):
+        if self._txn_snapshot is None:
+            raise RuntimeError("no active transaction")
+        if self.db_path and self._txn_wal:
+            from .storage.persist import wal_append
+
+            for q in self._txn_wal:
+                wal_append(self.db_path, q)
+        self._txn_snapshot = None
+        self._txn_wal = None
+
+    def rollback(self):
+        if self._txn_snapshot is None:
+            raise RuntimeError("no active transaction")
+        self.catalog.restore(self._txn_snapshot)
+        self._txn_snapshot = None
+        self._txn_wal = None
 
     def execute_plan(self, plan) -> Result:
         return Result(self.executor.execute(plan))

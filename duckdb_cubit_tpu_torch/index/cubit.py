@@ -222,6 +222,25 @@ class CubitIndex:
         return int(self.bin_of(np.asarray([value]))[0]) \
             if self.bin_edges is not None else int(value)
 
+    def bins_of(self, values) -> np.ndarray:
+        """`_bin` of many values at once (int64 bins)."""
+        values = np.asarray(values)
+        return (self.bin_of(values) if self.bin_edges is not None
+                else values).astype(np.int64)
+
+    def update_many(self, rows, old_values, new_values):
+        """`update` of many rows: one buffered delta a row."""
+        self._pending.extend(zip(np.asarray(rows, np.int64).tolist(),
+                                 self.bins_of(old_values).tolist(),
+                                 self.bins_of(new_values).tolist()))
+
+    def delete_many(self, rows, old_values):
+        """`delete` of many rows: one buffered delta a row."""
+        rows = np.asarray(rows, np.int64)
+        self._pending.extend(zip(rows.tolist(),
+                                 self.bins_of(old_values).tolist(),
+                                 [-1] * len(rows)))
+
     def update(self, row: int, old_value, new_value):
         """Buffer a value change for `row` (CUBIT UpdateConscious delta)."""
         self._pending.append((row, self._bin(old_value), self._bin(new_value)))

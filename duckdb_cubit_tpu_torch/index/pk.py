@@ -20,10 +20,25 @@ class DirectPKIndex:
         self.max_key = max_key
         # per-column VALUE luts in key space: vlut[slot] = column[lut[slot]]
         # (0 where absent; callers mask by `found`).  Built once on the host
-        # and cached here: an index is rebuilt, never updated, so an entry
-        # cannot go stale.
+        # and cached here, so an entry holds the column's values as they
+        # were when it was built: every mutation of the table replaces the
+        # index (an append rebuilds it, an UPDATE of a column swaps in
+        # `without_value_lut`), and an index object is never changed after
+        # a transaction snapshot may hold it.
         self._value_luts: dict[str, torch.Tensor] = {}
         self._lut_host: np.ndarray | None = None
+
+    def has_value_lut(self, name: str) -> bool:
+        return name in self._value_luts
+
+    def without_value_lut(self, name: str) -> "DirectPKIndex":
+        """A copy sharing the row lut and every other value lut, without the
+        value lut of `name` (whose column has changed)."""
+        out = DirectPKIndex(self.column, self.lut, self.max_key)
+        out._value_luts = {n: v for n, v in self._value_luts.items()
+                           if n != name}
+        out._lut_host = self._lut_host
+        return out
 
     def device_value_lut(self, name: str, host_col: np.ndarray) -> torch.Tensor:
         """int32 value lut of a base column, on the index's device."""

@@ -10,12 +10,13 @@ FK-dense and sort-based grouping), HashJoin (the direct-address PK path,
 whose probe and build-value fetch go through the monotone gather kernel of
 `ops/probe.py`; the reverse-PK semi join; and the general sort-merge paths
 of `ops/join.py`: single match, expansion, LEFT / FULL OUTER, SEMI / ANTI,
-multi-column keys), OrderBy and Limit; and the operators the binder emits
-for subqueries and sources: MarkJoin (EXISTS / IN with a residual),
-BroadcastScalar (uncorrelated scalar subqueries), SingleRow (no FROM),
-RangeSource (range() / generate_series()) and Materialized.  Operators that
-later slices port (windows, range and asof joins) exist by name for the
-shared binder and optimizer, and raise NotImplementedError.
+multi-column keys), RangeJoin (non-equi joins and the cross product),
+AsofJoin, Window (the primitives of `ops/window.py`), OrderBy and Limit; and
+the operators the binder emits for subqueries and sources: MarkJoin (EXISTS
+/ IN with a residual), BroadcastScalar (uncorrelated scalar subqueries),
+SingleRow (no FROM), RangeSource (range() / generate_series()) and
+Materialized.  A table's deleted rows (`Table.deleted`) drop out of every
+scan through `Table.row_mask`.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from ..ops import join as join_ops
 from ..ops import kernels
 from ..ops import probe as PPK
 from ..ops.expressions import (Arith, Col, ColMeta, EvalContext, Expr,
-                               Typed, as_mask)
+                               Typed, _as_double, _rescale, _wide, as_mask)
 from ..storage.table import Table, pad_count
 from ..types import BOOL, DOUBLE, INT64, DataType, TypeId
 
@@ -158,24 +159,6 @@ class PhysicalOperator:
             yield from c.walk()
 
 
-class _NotPorted(PhysicalOperator):
-    """An operator the binder can emit but this port does not run yet:
-    constructing it raises, so a query that needs it fails by name."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__}: not ported yet")
-
-
-class RangeJoin(_NotPorted): name = "range_join"
-class AsofJoin(_NotPorted): name = "asof_join"
-class Window(_NotPorted): name = "window"
-
-
-class WindowFunc:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("WindowFunc: not ported yet")
-
-
 def static_base_table(op: PhysicalOperator) -> str | None:
     """Which base table's row space an operator's output stays aligned to.
 
@@ -192,7 +175,7 @@ def static_base_table(op: PhysicalOperator) -> str | None:
         if op.join_type in ("semi", "anti") or (
                 op.single_match and not getattr(op, "_force_expand", False)):
             return static_base_table(op.children[0])
-    if isinstance(op, (MarkJoin, BroadcastScalar)):
+    if isinstance(op, (MarkJoin, BroadcastScalar, Window)):
         # mask-preserving: output rows stay aligned to the probe/child rows
         return static_base_table(op.children[0])
     return None
@@ -901,6 +884,210 @@ class HashJoin(PhysicalOperator):
                 f"nkp={getattr(self, '_no_kernel_probe', False)}]")
 
 
+def _comparable(pt: Typed, bt: Typed):
+    """Two sides of a join condition in one domain: float64 when either
+    is DOUBLE, else int64 at one decimal scale (as `ops/expressions`
+    comparisons align them).  The reference compares the raw scaled
+    integers, so a DECIMAL side against an INTEGER side matched wrongly
+    there.  -> (probe array, build array, floating)."""
+    if TypeId.DOUBLE in (pt.dtype.id, bt.dtype.id):
+        return _as_double(pt), _as_double(bt), True
+    s = max(t.dtype.scale if t.dtype.id == TypeId.DECIMAL else 0
+            for t in (pt, bt))
+    return (_wide(_rescale(pt, s).array), _wide(_rescale(bt, s).array),
+            False)
+
+
+def _cmp_arrays(a, op: str, b):
+    if op == "<":
+        return a < b
+    if op == "<=":
+        return a <= b
+    if op == ">":
+        return a > b
+    if op == ">=":
+        return a >= b
+    if op == "==":
+        return a == b
+    raise ValueError(f"unsupported range-join op {op}")
+
+
+class RangeJoin(PhysicalOperator):
+    """Non-equi join: band joins, inequality joins and the cross product.
+
+    The build side is sorted on the first condition's build expression and
+    each probe row's match set is a contiguous range of that order, located
+    by one vectorized searchsorted.  The ranges expand through the same
+    static-capacity machinery as the hash join (`ops/join.expand_matches`,
+    with the recoverable `expansion` check the executor regrows), and every
+    remaining condition is re-checked on the expanded pairs.  An empty
+    condition list is the cross product.  Both sides of a condition compare
+    at one decimal scale.
+
+    conditions: [(probe_expr, op, build_expr), ...], op in < <= > >= ==,
+    each expr reading only its own side's columns.  join_type: 'inner' |
+    'semi' | 'anti' | 'left' ('left' takes one condition).
+    """
+
+    name = "range_join"
+
+    def __init__(self, probe: PhysicalOperator, build: PhysicalOperator,
+                 conditions: Sequence[tuple], join_type: str = "inner",
+                 out_capacity: int | None = None, build_prefix: str = ""):
+        super().__init__([probe, build])
+        self.conditions = list(conditions)
+        self.join_type = join_type
+        self.out_capacity = out_capacity
+        self.build_prefix = build_prefix
+        if join_type == "left" and len(self.conditions) > 1:
+            raise ValueError("LEFT range join supports one condition")
+
+    def is_pipeline_breaker(self):
+        return True
+
+    def blocking_children(self):
+        return [self.children[1]]
+
+    @staticmethod
+    def _keys(probe_rel, build_rel, pe, be):
+        """One condition's sides as order-preserving int64 keys (DOUBLE
+        through the monotone encoding), the key past every value, and the
+        typed sides."""
+        dev = probe_rel.mask.device
+        pt, bt = probe_rel.evaluate(pe), build_rel.evaluate(be)
+        pa, ba, floating = _comparable(pt, bt)
+        pv = _column(pa, probe_rel.capacity, dev)
+        bv = _column(ba, build_rel.capacity, dev)
+        if floating:
+            pv, bv = kernels.monotone_i64(pv), kernels.monotone_i64(bv)
+            big = torch.iinfo(torch.int64).max
+        else:
+            pv, bv, big = pv.to(torch.int64), bv.to(torch.int64), 2**62
+        return pv, bv, big, pt, bt
+
+    @staticmethod
+    def _span(op, sorted_vals, pv, nb):
+        """[s, e): the positions of ascending `sorted_vals` (the first `nb`
+        live) whose value v satisfies `probe op v`."""
+        lo = torch.searchsorted(sorted_vals, pv)
+        hi = torch.searchsorted(sorted_vals, pv, right=True)
+        zero = torch.zeros_like(lo)
+        nb = nb.expand_as(lo)
+        spans = {"<": (hi, nb),     # probe < build: the strictly greater
+                 "<=": (lo, nb),    # suffix
+                 ">": (zero, lo),   # probe > build: the strictly smaller
+                 ">=": (zero, hi),  # prefix
+                 "==": (lo, hi)}
+        if op not in spans:
+            raise ValueError(f"unsupported range-join op {op}")
+        return spans[op]
+
+    def _ranges(self, probe_rel: Relation, build_rel: Relation):
+        """Per-probe (start, count) into the sorted build order, and the
+        order.
+
+        A later condition whose build values ascend along that order (the
+        upper bounds of non-overlapping bands sorted by their lower bounds)
+        selects a contiguous range of it too, and the two ranges intersect:
+        a band join then expands only the pairs inside the band.  Whether
+        they ascend is read on the device and chosen by `where`, with no
+        host read; the residual re-check on the pairs stays either way."""
+        dev = probe_rel.mask.device
+        if not self.conditions:  # cross product: every valid build row
+            order = torch.sort((~build_rel.mask).to(torch.int8),
+                               stable=True)[1]
+            nb = build_rel.mask.to(torch.int64).sum()
+            start = torch.zeros(probe_rel.capacity, dtype=torch.int64,
+                                device=dev)
+            count = torch.where(probe_rel.mask, nb, 0)
+            return start, count, order
+        pe, op, be = self.conditions[0]
+        pv, bv, big, pt, bt = self._keys(probe_rel, build_rel, pe, be)
+        bvalid = build_rel.mask if bt.valid is None \
+            else build_rel.mask & bt.valid
+        sort_key = torch.where(bvalid, bv, big)     # invalid rows sort last
+        sorted_vals, order = torch.sort(sort_key, stable=True)
+        nb = bvalid.to(torch.int64).sum()
+        start, end = self._span(op, sorted_vals, pv, nb)
+        live = torch.arange(build_rel.capacity, device=dev) < nb
+        for pe2, op2, be2 in self.conditions[1:]:
+            pv2, bv2, big2, _, bt2 = self._keys(probe_rel, build_rel, pe2,
+                                                be2)
+            if bt2.valid is not None:
+                continue
+            b2 = torch.where(live, bv2[order], big2)
+            ascending = (b2[1:] >= b2[:-1]).all()
+            s2, e2 = self._span(op2, b2, pv2, nb)
+            start = torch.where(ascending, torch.maximum(start, s2), start)
+            end = torch.where(ascending, torch.minimum(end, e2), end)
+        count = torch.clamp(end - start, min=0)
+        if pt.valid is not None:               # a NULL probe value: no match
+            count = torch.where(pt.valid, count, torch.zeros_like(count))
+        return start, count, order
+
+    def _execute(self, ctx):
+        probe_rel = self.children[0].execute(ctx)
+        build_rel = self.children[1].execute(ctx)
+        dev = probe_rel.mask.device
+        left = self.join_type == "left"
+        start, count, order = self._ranges(probe_rel, build_rel)
+        cap = getattr(self, "_cap_override", None) or self.out_capacity
+        if cap is None:
+            factor = (ctx.config.join_expansion_factor
+                      if ctx.config is not None else 1.0)
+            cap = pad_count(int(probe_rel.capacity * factor))
+        slots = torch.arange(probe_rel.capacity, dtype=torch.int32,
+                             device=dev)
+        entry = torch.where(count > 0, slots, -1)
+        out_probe, out_build, total = join_ops.expand_matches(
+            start, count, order, entry, probe_rel.mask, cap, left=left)
+        ctx.add_check(self, "expansion", total <= cap, cap)
+        valid = torch.arange(cap, device=dev) < total
+        matched = out_build >= 0
+        safe_b = torch.clamp(out_build, 0, build_rel.capacity - 1)
+        # residual conditions re-checked on the expanded pairs
+        keep = valid & matched
+        if len(self.conditions) > 1:
+            gp = probe_rel.gather(out_probe, keep, cap)
+            gb = build_rel.gather(safe_b, keep, cap)
+            for pe2, op2, be2 in self.conditions[1:]:
+                pt2, bt2 = gp.evaluate(pe2), gb.evaluate(be2)
+                pa, ba, _ = _comparable(pt2, bt2)
+                c2 = _cmp_arrays(pa, op2, ba)
+                for v in (pt2.valid, bt2.valid):
+                    if v is not None:
+                        c2 = c2 & v
+                keep = keep & c2
+        if self.join_type in ("semi", "anti"):
+            hit = _scatter_flags(probe_rel.capacity, out_probe.clamp(min=0),
+                                 keep)
+            m = ~hit if self.join_type == "anti" else hit
+            return probe_rel.with_mask(m & probe_rel.mask)
+        out_valid = valid if left else keep
+        out = probe_rel.gather(out_probe, out_valid, cap)
+        cols = dict(out.columns)
+        for n, c in build_rel.columns.items():
+            out_name = self.build_prefix + n
+            if out_name in cols:
+                continue
+            v = None if c.valid is None else c.valid[safe_b]
+            if left:    # unmatched probe rows see NULL build values
+                v = matched if v is None else (v & matched)
+            cols[out_name] = RelColumn(c.array[safe_b], c.dtype,
+                                       c.dictionary, c.domain, v)
+        return Relation(cols, out_valid, cap)
+
+    def describe(self):
+        conds = [f"{p!r}{op}{b!r}" for p, op, b in self.conditions] or ["x"]
+        return f"range_join({self.join_type}, {', '.join(conds)})"
+
+    def _self_signature(self):
+        conds = ";".join(f"{p!r}{op}{b!r}" for p, op, b in self.conditions)
+        return (f"range_join[{self.join_type};{conds};{self.out_capacity};"
+                f"{self.build_prefix};"
+                f"ov={getattr(self, '_cap_override', None)}]")
+
+
 class BroadcastScalar(PhysicalOperator):
     """Attach a 1-row subplan's columns to every row of the child: the
     uncorrelated scalar subquery.  The value, its presence (the subplan's
@@ -1049,7 +1236,9 @@ class GroupAggregate(PhysicalOperator):
                 getattr(child, "always_false", False):
             return None
         table = ctx.catalog.table(child.table_name)
-        if table.capacity % 8192 != 0:
+        # deleted rows: the generic path, which reads the scan's mask (the
+        # reference declines too)
+        if table.deleted is not None or table.capacity % 8192 != 0:
             return None
         scale = 0
         maxes = []
@@ -1561,6 +1750,286 @@ class Limit(PhysicalOperator):
 
     def _self_signature(self):
         return f"limit[{self.limit}]"
+
+
+@dataclasses.dataclass
+class WindowFunc:
+    kind: str                 # row_number|rank|dense_rank|lead|lag|
+    #                           first_value|last_value|sum|avg|min|max|
+    #                           count|total
+    expr: Expr | None         # value expression (None: row_number/count(*))
+    name: str                 # output column
+    offset: int = 1           # lead/lag distance
+    default: object = None    # lead/lag default (None -> NULL)
+    # frame: a legacy string (rows_upto | range_upto | partition) or a
+    # sliding tuple (mode, lo, hi), mode in {"rows", "range"}, lo/hi int
+    # offsets with None = UNBOUNDED (ops/window.py frame_bounds).  None ->
+    # range_upto with ORDER BY, else the whole partition.
+    frame: object | None = None
+
+
+class Window(PhysicalOperator):
+    """Window functions over partitions: one shared sort per window
+    (`ops/window.analyze`), then each function's segmented prefix
+    primitive.  The output keeps the input's rows and mask."""
+
+    name = "window"
+
+    def __init__(self, child: PhysicalOperator,
+                 partition_by: Sequence[str],
+                 order_by: Sequence[tuple[str, bool]],
+                 functions: Sequence[WindowFunc]):
+        super().__init__([child])
+        self.partition_by = list(partition_by)
+        self.order_by = list(order_by)
+        self.functions = list(functions)
+
+    def is_pipeline_breaker(self):
+        return True
+
+    def _key_arrays(self, rel):
+        """Sort keys: float keys through the monotone int64 encoding, DESC
+        as bitwise NOT (a decreasing bijection with no overflow), and a
+        leading NULL-flag key for a nullable column (NULLs form one
+        partition and sort last)."""
+        def keys(name, desc):
+            c = rel.columns[name]
+            enc = kernels.monotone_i64(c.array)
+            if desc:
+                enc = ~enc
+            if c.valid is None:
+                return [enc]
+            return [(~c.valid).to(torch.int64),
+                    torch.where(c.valid, enc, torch.zeros_like(enc))]
+
+        parts = [a for k in self.partition_by for a in keys(k, False)]
+        orders = [a for k, desc in self.order_by for a in keys(k, desc)]
+        return tuple(parts), tuple(orders)
+
+    def _frame(self, f: WindowFunc, rel, order_enc):
+        """The function's frame, degenerate tuples normalized to the legacy
+        running forms; a RANGE offset frame is checked."""
+        frame = f.frame or ("range_upto" if self.order_by else "partition")
+        if not isinstance(frame, tuple):
+            return frame
+        mode, flo, fhi = frame
+        if flo is None and fhi is None:
+            return "partition"
+        if flo is None and fhi == 0:
+            return "rows_upto" if mode == "rows" else "range_upto"
+        if mode == "range":
+            if order_enc is None:
+                raise ValueError(
+                    "RANGE offset frame requires exactly one ORDER BY key")
+            oc = rel.columns[self.order_by[0][0]]
+            if oc.dtype.id not in (TypeId.INT32, TypeId.INT64, TypeId.DATE,
+                                   TypeId.DECIMAL):
+                raise ValueError(
+                    "RANGE offset frame requires an integer-ordered key")
+            # DESC needs no offset flip: the ~ encoding is affine with slope
+            # -1, so "m PRECEDING" is m encoded units below the current key
+        return frame
+
+    def _execute(self, ctx):
+        from ..ops import window as W
+
+        rel = self.children[0].execute(ctx)
+        dev = rel.mask.device
+        parts, orders = self._key_arrays(rel)
+        wctx = W.analyze(parts, orders, rel.mask)
+        # RANGE sliding frames need the single order key in sorted order
+        order_enc = wctx.take(orders[0]) if len(orders) == 1 else None
+        cols = dict(rel.columns)
+        for f in self.functions:
+            frame = self._frame(f, rel, order_enc)
+            if f.kind in ("row_number", "rank", "dense_rank"):
+                fn = getattr(W, f.kind)
+                cols[f.name] = RelColumn(fn(wctx), INT64, None)
+                continue
+            if f.kind == "count" and f.expr is None:
+                out, _ = W.agg(wctx, "count", None, None, frame,
+                               order_enc=order_enc)
+                cols[f.name] = RelColumn(out, INT64, None)
+                continue
+            t = rel.evaluate(f.expr)
+            arr = _column(t.array, rel.capacity, dev)
+            if f.kind in ("lead", "lag"):
+                off = f.offset if f.kind == "lead" else -f.offset
+                out, ok = W.shift(wctx, arr, t.valid, off, f.default)
+                cols[f.name] = RelColumn(out, t.dtype, t.dictionary,
+                                         valid=ok)
+            elif f.kind in ("first_value", "last_value"):
+                ab = W.frame_bounds(wctx, frame, order_enc)
+                if ab is not None:
+                    out, ok = W.first_last_sliding(
+                        wctx, arr, t.valid, ab, last=f.kind == "last_value")
+                    cols[f.name] = RelColumn(out, t.dtype, t.dictionary,
+                                             valid=ok)
+                elif f.kind == "first_value":
+                    cols[f.name] = RelColumn(W.first_value(wctx, arr),
+                                             t.dtype, t.dictionary)
+                else:
+                    cols[f.name] = RelColumn(
+                        W.last_value(wctx, arr, frame=frame), t.dtype,
+                        t.dictionary)
+            elif f.kind in ("sum", "total", "avg", "min", "max", "count"):
+                cols[f.name] = self._aggregate(W, wctx, f, t, arr, frame,
+                                               order_enc)
+            else:
+                raise ValueError(f.kind)
+        return Relation(cols, rel.mask, rel.capacity)
+
+    @staticmethod
+    def _aggregate(W, wctx, f, t, arr, frame, order_enc) -> RelColumn:
+        kind = "sum" if f.kind == "total" else f.kind
+        if f.kind == "total":
+            frame = "partition"
+        if kind in ("sum", "avg"):
+            if arr.is_floating_point():
+                kind = "sum_double" if kind == "sum" else "avg"
+            else:
+                arr = arr.to(torch.int64)
+        out, ok = W.agg(wctx, kind, arr, t.valid, frame, order_enc=order_enc)
+        if kind == "avg":
+            dt = DOUBLE
+            if t.dtype.id == TypeId.DECIMAL:
+                out = out / 10.0 ** t.dtype.scale
+        elif f.kind == "count":
+            dt = INT64
+        elif t.dtype.id == TypeId.DECIMAL or kind in ("min", "max"):
+            dt = t.dtype
+        else:
+            dt = DOUBLE if out.is_floating_point() else INT64
+        return RelColumn(out, dt, t.dictionary if kind in ("min", "max")
+                         else None, valid=ok)
+
+    def _self_signature(self):
+        fs = ";".join(f"{f.kind}:{f.name}:{f.expr!r}:{f.offset}:"
+                      f"{f.default}:{f.frame}" for f in self.functions)
+        return f"window[{self.partition_by};{self.order_by};{fs}]"
+
+    def describe(self):
+        return (f"window(partition={self.partition_by}, order={self.order_by},"
+                f" funcs={[f.kind for f in self.functions]})")
+
+
+class AsofJoin(PhysicalOperator):
+    """ASOF join: each probe row matches AT MOST ONE build row, the one with
+    the greatest build time <= the probe time (op '>=', the canonical form;
+    '>' strict, and '<=' / '<' by negating both sides) among the rows with
+    equal equi-keys.
+
+    The build side is sorted once by (equi-key, time); keys and times are
+    rank-encoded into one int64, so each probe row finds its candidate with
+    one vectorized searchsorted, and a gather re-checks the key columns
+    exactly.  The probe's shape is kept (single match): 'inner' narrows the
+    mask on a miss, 'left' NULL-extends the build columns.
+
+    probe_keys / build_keys: equi-key column names; probe_time op
+    build_time: the int-typed time condition.
+    """
+
+    name = "asof_join"
+
+    def __init__(self, probe, build, probe_keys, build_keys,
+                 probe_time: Expr, op: str, build_time: Expr,
+                 join_type: str = "inner", build_prefix: str = ""):
+        super().__init__([probe, build])
+        self.probe_keys = list(probe_keys)
+        self.build_keys = list(build_keys)
+        self.probe_time = probe_time
+        self.op = op
+        self.build_time = build_time
+        if join_type not in ("inner", "left"):
+            raise ValueError("ASOF join supports inner/left")
+        self.join_type = join_type
+        self.build_prefix = build_prefix
+
+    def is_pipeline_breaker(self):
+        return True
+
+    def blocking_children(self):
+        return [self.children[1]]
+
+    def _execute(self, ctx):
+        probe_rel = self.children[0].execute(ctx)
+        build_rel = self.children[1].execute(ctx)
+        dev = probe_rel.mask.device
+        pt = probe_rel.evaluate(self.probe_time)
+        bt = build_rel.evaluate(self.build_time)
+        ptv = kernels.monotone_i64(_column(pt.array, probe_rel.capacity, dev))
+        btv = kernels.monotone_i64(_column(bt.array, build_rel.capacity, dev))
+        op = self.op
+        if op in ("<=", "<"):          # probe_t <= build_t: negate the times
+            ptv, btv = -ptv, -btv
+            op = ">=" if op == "<=" else ">"
+        if op == ">":                  # strict: t_b <= t_p - 1 (int times)
+            ptv = ptv - 1
+        pkey = _combine_keys(ctx, probe_rel, self.probe_keys) \
+            if self.probe_keys else torch.zeros(
+                probe_rel.capacity, dtype=torch.int64, device=dev)
+        bkey = _combine_keys(ctx, build_rel, self.build_keys) \
+            if self.build_keys else torch.zeros(
+                build_rel.capacity, dtype=torch.int64, device=dev)
+        bvalid = build_rel.mask
+        if bt.valid is not None:
+            bvalid = bvalid & bt.valid
+        bcap = build_rel.capacity
+        perm = kernels.lexsort(((~bvalid).to(torch.int64), bkey, btv))
+        sk, st = bkey[perm], btv[perm]
+        nb = bvalid.to(torch.int64).sum()
+        big = torch.iinfo(torch.int64).max
+        in_prefix = torch.arange(bcap, device=dev) < nb
+        sk_valid = torch.where(in_prefix, sk, big)   # the valid prefix only
+        st_valid = torch.where(in_prefix, st, big)
+        # rank-encode keys and times so the composite (key, time) fits one
+        # int64 whatever the raw ranges: rank(x) = #values <= x is monotone,
+        # and probe times rank with right=True, so st <= ptv <=> rank(st) <=
+        # rank(ptv) exactly
+        ts = torch.sort(st_valid)[0]
+        krb = torch.searchsorted(sk_valid, sk)
+        rtb = torch.searchsorted(ts, st, right=True)
+        krp = torch.searchsorted(sk_valid, pkey)
+        rtp = torch.searchsorted(ts, ptv, right=True)
+        enc_b = torch.where(in_prefix, (krb << 32) + rtb, big)
+        enc_p = (krp << 32) + rtp
+        pos = torch.searchsorted(enc_b, enc_p, right=True) - 1
+        safe = torch.clamp(pos, 0, bcap - 1)
+        # the candidate must carry the probe's key (otherwise the search fell
+        # into the previous key's run: no time <= ptv for this key)
+        found = (pos >= 0) & (sk_valid[safe] == pkey) & probe_rel.mask
+        build_row = torch.where(found, perm[safe], -1)
+        if pt.valid is not None:
+            found = found & pt.valid
+        if self.probe_keys:
+            # the exact key re-check through the matched rows
+            probe_rows = torch.arange(probe_rel.capacity, device=dev)
+            found = _exact_key_eq(probe_rel, build_rel, self.probe_keys,
+                                  self.build_keys, probe_rows,
+                                  torch.clamp(build_row, min=0), found)
+        left = self.join_type == "left"
+        safe_b = torch.clamp(build_row, 0, bcap - 1)
+        cols = dict(probe_rel.columns)
+        for n, c in build_rel.columns.items():
+            out_name = self.build_prefix + n
+            if out_name in cols:
+                continue
+            v = None if c.valid is None else c.valid[safe_b]
+            if left:
+                v = found if v is None else (v & found)
+            cols[out_name] = RelColumn(c.array[safe_b], c.dtype,
+                                       c.dictionary, c.domain, v)
+        mask = probe_rel.mask if left else (probe_rel.mask & found)
+        return Relation(cols, mask, probe_rel.capacity)
+
+    def _self_signature(self):
+        return (f"asof_join[{self.join_type};{self.probe_keys};"
+                f"{self.build_keys};{self.probe_time!r}{self.op}"
+                f"{self.build_time!r};{self.build_prefix}]")
+
+    def describe(self):
+        return (f"asof_join({self.join_type}, {self.probe_keys}="
+                f"{self.build_keys}, {self.op})")
 
 
 class Materialized(PhysicalOperator):

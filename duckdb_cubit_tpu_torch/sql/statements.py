@@ -1,16 +1,17 @@
-"""Non-SELECT statements: DDL, INSERT, SET, PRAGMA, EXPLAIN.
+"""Non-SELECT statements: DDL, DML, SET, transactions, PRAGMA, EXPLAIN.
 
 Counterpart of `duckdb_cubit_tpu/sql/statements.py`, built on the port's
-storage (`storage/table.from_numpy`, `storage/dml.append_rows`), indexes
-and `EngineConfig`.  Each statement that changes a table bumps its version
-(or replaces it), so the executor's prepare cache never serves a plan built
-for the old table.
+storage (`storage/table.from_numpy`, `storage/dml`), indexes and
+`EngineConfig`.  Each statement that changes a table bumps its version (or
+replaces it), so the executor's prepare cache never serves a plan built
+for the old table.  DELETE and UPDATE find their rows by running the WHERE
+predicate through the query path (`_match_rows`); BEGIN / COMMIT /
+ROLLBACK go to the connection's snapshot transactions (`api.py`).
 
 Statements and settings the port does not run yet raise
-NotImplementedError by name instead of being accepted and ignored: DELETE,
-UPDATE, BEGIN / COMMIT / ROLLBACK, EXPLAIN ANALYZE and PRAGMA
-enable_verification; and a SELECT while `enable_verification`,
-`force_external` or `query_timeout_s > 0` is set.
+NotImplementedError by name instead of being accepted and ignored: EXPLAIN
+ANALYZE and PRAGMA enable_verification; and a SELECT while
+`enable_verification`, `force_external` or `query_timeout_s > 0` is set.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 from ..exec import result as R
 from ..index.cubit import CubitIndex
 from ..index.pk import DirectPKIndex
+from ..ops.expressions import _as_double, _wide
+from ..plan.physical import TableScan
 from ..storage import dml
 from ..storage.table import from_numpy
 from ..types import (BOOL, CHAR1, DATE, DOUBLE, INT32, INT64, VARCHAR,
@@ -108,6 +111,50 @@ def _literal_value(node, dtype: DataType):
     return -out if neg else out
 
 
+def _match_rows(conn, table_name: str, where) -> np.ndarray:
+    """The host row ids a WHERE predicate selects (live rows only).  The
+    predicate runs through the same TableScan / expression path as queries,
+    so DML predicate semantics are exactly query semantics."""
+    table = conn.catalog.table(table_name)
+    if where is None:
+        return np.nonzero(table.row_mask().cpu().numpy())[0]
+    expr = conn.binder.bind_table_expr(table_name, where)
+    rel = conn.executor.execute(TableScan(table_name, filters=[expr]),
+                                optimize=False)
+    return np.nonzero(rel.mask.cpu().numpy())[0]
+
+
+def _host_values(arr, rowids: np.ndarray) -> np.ndarray:
+    """A column (or a constant) at `rowids`, on the host."""
+    if isinstance(arr, torch.Tensor) and arr.ndim == 1:
+        return arr[torch.as_tensor(rowids, device=arr.device)].cpu().numpy()
+    if isinstance(arr, torch.Tensor):
+        arr = arr.item()
+    return np.full(len(rowids), arr)
+
+
+def _half_away(x: np.ndarray) -> np.ndarray:
+    return np.sign(x) * np.floor(np.abs(x) + 0.5)
+
+
+def _cast_values(t, dtype: DataType, rowids: np.ndarray) -> np.ndarray:
+    """An evaluated expression's values at `rowids`, in the storage form of
+    a column of `dtype` (a DECIMAL at the column's scale, rounded half away
+    from zero where it narrows; the reference stores the raw values)."""
+    if dtype.id == TypeId.DOUBLE:
+        return _host_values(_as_double(t), rowids).astype(np.float64)
+    src_scale = t.dtype.scale if t.dtype.id == TypeId.DECIMAL else 0
+    dst_scale = dtype.scale if dtype.id == TypeId.DECIMAL else 0
+    if t.dtype.id == TypeId.DOUBLE:
+        v = _host_values(t.array, rowids).astype(np.float64)
+        return _half_away(v * 10.0 ** dst_scale).astype(np.int64)
+    v = _host_values(_wide(t.array), rowids).astype(np.int64)
+    if dst_scale >= src_scale:
+        return v * 10 ** (dst_scale - src_scale)
+    p = 10 ** (src_scale - dst_scale)
+    return np.sign(v) * ((np.abs(v) + p // 2) // p)
+
+
 def _create_table_as(conn, stmt):
     if stmt.name in conn.catalog.tables:
         raise StatementError(f"table {stmt.name} already exists")
@@ -128,11 +175,7 @@ def _create_table_as(conn, stmt):
             schema[cname] = c.dtype
     t = from_numpy(stmt.name, data, schema or None, device=conn.device)
     for cname, nm in nullmasks.items():
-        col = t.columns[cname]
-        col.nulls_host = nm
-        padded = np.zeros(t.capacity, bool)
-        padded[: len(nm)] = nm
-        col.nulls = torch.as_tensor(padded, device=conn.device)
+        t.columns[cname].set_nulls(nm, t.capacity)
     conn.catalog.register(t)
     return f"CREATE TABLE {stmt.name} AS ({t.num_rows} rows)", []
 
@@ -204,6 +247,53 @@ def _insert(conn, stmt):
     return f"INSERT {len(stmt.rows)} (first rowid {first})", []
 
 
+def _delete(conn, stmt):
+    table = conn.catalog.table(stmt.table)
+    rowids = _match_rows(conn, stmt.table, stmt.where)
+    if len(rowids):
+        dml.delete_rows(table, rowids)
+    else:
+        table.version += 1
+    return f"DELETE {len(rowids)}", []
+
+
+def _update(conn, stmt):
+    """Every assignment is evaluated against the rows as they were before
+    the statement (SQL semantics), then written column by column."""
+    table = conn.catalog.table(stmt.table)
+    rowids = _match_rows(conn, stmt.table, stmt.where)
+    if not len(rowids):
+        table.version += 1
+        return "UPDATE 0", []
+    rel = None
+    writes = []
+    for col_name, expr in stmt.assignments:
+        dtype = table.columns[col_name].dtype
+        try:
+            v = _literal_value(expr, dtype)
+            nulls = np.full(len(rowids), v is None)
+            vals = np.full(len(rowids), 0 if v is None else v)
+        except StatementError:
+            # a general expression over the table's rows
+            if rel is None:
+                rel = conn.executor.execute(TableScan(stmt.table),
+                                            optimize=False)
+            t = rel.evaluate(conn.binder.bind_table_expr(stmt.table, expr))
+            vals = _cast_values(t, dtype, rowids)
+            nulls = None if t.valid is None else \
+                ~_host_values(t.valid, rowids).astype(bool)
+        writes.append((col_name, vals, nulls))
+    for col_name, vals, nulls in writes:
+        dml.update_column(table, col_name, rowids, vals, new_nulls=nulls)
+    return f"UPDATE {len(rowids)}", []
+
+
+def _transaction(conn, stmt):
+    {"begin": conn.begin, "commit": conn.commit,
+     "rollback": conn.rollback}[stmt.kind]()
+    return stmt.kind.upper(), []
+
+
 def _explain(conn, stmt):
     if stmt.analyze:
         raise NotImplementedError("EXPLAIN ANALYZE: not ported yet")
@@ -272,18 +362,14 @@ def _set(conn, stmt):
 
 _HANDLERS = {A.CreateTable: _create_table, A.CreateTableAs: _create_table_as,
              A.CreateIndex: _create_index,
-             A.Insert: _insert, A.DropTable: _drop_table, A.SetStmt: _set,
+             A.Insert: _insert, A.Delete: _delete, A.Update: _update,
+             A.DropTable: _drop_table, A.SetStmt: _set,
+             A.TransactionStmt: _transaction,
              A.ExplainStmt: _explain, A.PragmaStmt: _pragma}
 
 
 def execute_statement(conn, stmt):
     """Execute a non-SELECT statement; -> (status string, rows)."""
-    if isinstance(stmt, (A.Delete, A.Update)):
-        raise NotImplementedError(
-            f"{type(stmt).__name__.upper()}: not ported yet")
-    if isinstance(stmt, A.TransactionStmt):
-        raise NotImplementedError(
-            f"{stmt.kind.upper()}: transactions are not ported yet")
     handler = _HANDLERS.get(type(stmt))
     if handler is None:
         raise StatementError(f"unhandled statement {type(stmt).__name__}")

@@ -1,18 +1,25 @@
-"""Appends with index maintenance: INSERT's path.
+"""Appends, deletes and updates with index maintenance.
 
-Counterpart of `duckdb_cubit_tpu/storage/dml.py`'s `append_rows` and
-`_refresh_stats`.  An append writes the new rows into fresh column tensors
-(grown, copied and padded when the capacity runs out), remaps a VARCHAR
-column's codes when new strings arrive (dictionaries stay sorted), extends
-the per-column NULL masks, buffers one CUBIT insert delta per row and
-publishes it with one merge per index (or rebuilds the index when the
-capacity or the code space changed), rebuilds every direct PK index (which
-drops its cached value luts), refreshes zone maps and domains, and bumps
-the table's version, so no prepared plan built for the old table is served
-again.  Tensors are never written in place: a reader of the previous
+Counterpart of `duckdb_cubit_tpu/storage/dml.py`.  An append writes the new
+rows into fresh column tensors (grown, copied and padded when the capacity
+runs out), remaps a VARCHAR column's codes when new strings arrive
+(dictionaries stay sorted), extends the per-column NULL masks, buffers one
+CUBIT insert delta per row and publishes it with one merge per index (or
+rebuilds the index when the capacity or the code space changed), rebuilds
+every direct PK index (which drops its cached value luts), refreshes zone
+maps and domains, and bumps the table's version, so no prepared plan built
+for the old table is served again.  Tensors are never written in place: a reader of the previous
 version keeps a consistent snapshot.
 
-Deleted-row masks, `delete_rows` and `update_column` are not ported yet.
+A delete is a validity epoch: rows never move (so PK luts and bitmap row
+positions stay valid); the table's `deleted` mask, which `Table.row_mask`
+honours, hides them and the CUBIT bitmaps drop their bits.  An update
+rewrites one column's values (a VARCHAR column would need re-encoding, and
+is refused as in the reference), moves the rows' bits between bins, and
+leaves no state derived from the old values: the column's sortedness is
+reset, and each PK index holding a value lut of the column is replaced by
+one without it (copy-on-write: a transaction snapshot keeps the old index
+with luts that match its data).
 """
 
 from __future__ import annotations
@@ -37,6 +44,17 @@ def _np_dtype(t: torch.Tensor) -> np.dtype:
 def _host(col, num_rows: int) -> np.ndarray:
     return (col.host[:num_rows] if col.host is not None
             else col.data[:num_rows].cpu().numpy())
+
+
+def _host_at(col, row_ids: np.ndarray, rows_dev: torch.Tensor) -> np.ndarray:
+    return (col.host[row_ids] if col.host is not None
+            else col.data[rows_dev].cpu().numpy())
+
+
+def _ensure_deleted_mask(table: Table):
+    if table.deleted is None:
+        table.deleted = torch.zeros(table.capacity, dtype=torch.bool,
+                                    device=table.device)
 
 
 def append_rows(table: Table, rows: dict[str, np.ndarray],
@@ -116,10 +134,7 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
             nh[:first] = old_h[:first]
             if new_nulls is not None:
                 nh[first:new_count] = new_nulls
-            col.nulls_host = nh
-            padded = np.zeros(new_capacity, bool)
-            padded[:new_count] = nh
-            col.nulls = torch.as_tensor(padded, device=dev)
+            col.set_nulls(nh, new_capacity)
         col.is_sorted = False
         # index deltas (not for remapped dictionary columns, whose bins live
         # in the old code space: rebuilt below)
@@ -128,6 +143,9 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
             for i in range(n_new):
                 idx.insert(first + i, host_new[i])
     table.num_rows = new_count
+    if table.deleted is not None and grow:
+        table.deleted = torch.cat([table.deleted, torch.zeros(
+            new_capacity - table.capacity, dtype=torch.bool, device=dev)])
     if grow:
         # a new capacity changes the bitmap word counts: rebuild
         for name, idx in list(table.indexes.items()):
@@ -187,3 +205,83 @@ def _refresh_stats(table: Table, columns=None):
             col.domain = np.unique(host)
         elif col.domain is not None or col.zone_map is not None:
             col.domain = _int_domain(col.zone_map, col.dtype)
+
+
+def delete_rows(table: Table, row_ids: np.ndarray):
+    """Mark rows deleted; each CUBIT index drops their bits (one merge per
+    index)."""
+    _ensure_deleted_mask(table)
+    row_ids = np.asarray(row_ids, dtype=np.int64)
+    rows_dev = torch.as_tensor(row_ids, device=table.device)
+    deleted = table.deleted.clone()
+    deleted[rows_dev] = True
+    table.deleted = deleted
+    for name, idx in table.indexes.items():
+        idx.delete_many(row_ids, _host_at(table.columns[name], row_ids,
+                                          rows_dev))
+        idx.merge()
+    table.version += 1
+
+
+def update_column(table: Table, column: str, row_ids: np.ndarray,
+                  new_values: np.ndarray, new_nulls: np.ndarray | None = None):
+    """Point updates of one column (CUBIT's update-conscious path).
+    `new_nulls` marks the rows set to NULL."""
+    col = table.columns[column]
+    if col.dictionary is not None:
+        raise DmlError("VARCHAR update requires re-encoding (not in round 1)")
+    row_ids = np.asarray(row_ids, dtype=np.int64)
+    rows_dev = torch.as_tensor(row_ids, device=table.device)
+    old = _host_at(col, row_ids, rows_dev)
+    new_values = np.asarray(new_values)
+    idx = table.indexes.get(column)
+    if idx is not None and len(row_ids):
+        # checked before anything changes (the reference fails in the
+        # merge, after the column was written)
+        bins = idx.bins_of(new_values)
+        if bins.min() < 0 or bins.max() >= idx.n_bins:
+            raise DmlError(f"UPDATE moves {column} outside the bins of its "
+                           f"index")
+    dt = old.dtype
+    if dt.kind == "i" and dt.itemsize < 8 and len(new_values):
+        info = np.iinfo(dt)
+        v64 = new_values.astype(np.int64)
+        if int(v64.max()) >= info.max or int(v64.min()) <= info.min:
+            # narrowed storage cannot hold the new values: widen it back
+            col.data = col.data.to(torch.int64)
+            if col.host is not None:
+                col.host = col.host.astype(np.int64)
+            dt = np.dtype(np.int64)
+    new_host = new_values.astype(dt)
+    data = col.data.clone()
+    data[rows_dev] = torch.as_tensor(new_host, device=table.device)
+    col.data = data
+    if col.host is not None:
+        # copy-on-write so catalog snapshots (transactions) stay consistent
+        col.host = col.host.copy()
+        col.host[row_ids] = new_host
+    if (new_nulls is not None and new_nulls.any()) or col.nulls is not None:
+        nh = (col.nulls_host[:table.num_rows].copy()
+              if col.nulls_host is not None
+              else np.zeros(table.num_rows, bool))
+        nh[row_ids] = False if new_nulls is None else new_nulls
+        col.set_nulls(nh, table.capacity)
+    # the new values need not keep the column sorted
+    col.is_sorted = False
+    if idx is not None:
+        idx.update_many(row_ids, old, new_values)
+        idx.merge()
+    for pk_col, pk in list(table.pk_indexes.items()):
+        if pk_col == column:
+            # the key itself moved: a fresh lut (or none, if the keys no
+            # longer suit a direct index)
+            fresh = DirectPKIndex.build(pk_col, _host(col, table.num_rows),
+                                        table.num_rows, device=table.device)
+            if fresh is None:
+                del table.pk_indexes[pk_col]
+            else:
+                table.pk_indexes[pk_col] = fresh
+        elif pk.has_value_lut(column):
+            table.pk_indexes[pk_col] = pk.without_value_lut(column)
+    _refresh_stats(table, [column])
+    table.version += 1

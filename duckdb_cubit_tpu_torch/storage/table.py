@@ -56,6 +56,14 @@ class Column:
     # integer key columns)
     is_sorted: bool = False
 
+    def set_nulls(self, nulls_host: np.ndarray, capacity: int):
+        """Publish a per-row NULL mask (host, unpadded) and its padded
+        device copy, a fresh tensor."""
+        self.nulls_host = nulls_host
+        padded = np.zeros(capacity, bool)
+        padded[:len(nulls_host)] = nulls_host
+        self.nulls = torch.as_tensor(padded, device=self.data.device)
+
     @property
     def dict_size(self) -> int:
         return 0 if self.dictionary is None else len(self.dictionary)
@@ -115,6 +123,10 @@ class Table:
     uid: int = dataclasses.field(default_factory=lambda: next(Table._UIDS))
     # the device every column tensor lives on (required, never defaulted)
     device: torch.device = dataclasses.field(kw_only=True)
+    # deleted rows: None, or a (capacity,) bool tensor on `device`, True at
+    # a deleted row (rows never move; storage/dml.delete_rows)
+    deleted: torch.Tensor | None = dataclasses.field(default=None,
+                                                     kw_only=True)
 
     _UIDS = itertools.count()
 
@@ -126,8 +138,9 @@ class Table:
         return list(self.columns.keys())
 
     def row_mask(self) -> torch.Tensor:
-        """Validity of the padded tail."""
-        return torch.arange(self.capacity, device=self.device) < self.num_rows
+        """Live rows: inside `num_rows` and not deleted."""
+        mask = torch.arange(self.capacity, device=self.device) < self.num_rows
+        return mask if self.deleted is None else mask & ~self.deleted
 
 
 def _ingest_column(name: str, dev_np: np.ndarray, dtype: DataType,
@@ -326,8 +339,9 @@ class Catalog:
         self.tables.pop(name, None)
 
     # ------------------------------------------------------- transactions
-    # Column tensors are never written in place and host state is
-    # copy-on-write, so a snapshot is a shallow structural copy.
+    # Column tensors (and the deleted-row mask) are never written in place,
+    # host state is copy-on-write and a mutated PK index is replaced, not
+    # changed, so a snapshot is a shallow structural copy.
     def snapshot(self):
         snap_tables = {}
         for name, t in self.tables.items():
@@ -340,5 +354,15 @@ class Catalog:
         return (snap_tables, dict(self.foreign_keys))
 
     def restore(self, snap):
-        self.tables = dict(snap[0])
+        """Go back to a snapshot.  A table changed since the snapshot comes
+        back under a new uid: the versions of the abandoned branch would
+        otherwise be reached again by the next mutations, and a prepared
+        plan cached for one of those states (keyed by uid and version)
+        would be served for a different one."""
+        tables = dict(snap[0])
+        for name, t in tables.items():
+            now = self.tables.get(name)
+            if now is None or now.uid != t.uid or now.version != t.version:
+                t.uid = next(Table._UIDS)
+        self.tables = tables
         self.foreign_keys = dict(snap[1])

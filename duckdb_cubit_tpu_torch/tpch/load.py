@@ -188,15 +188,13 @@ def from_reference_catalog(ref_catalog, *, device) -> Catalog:
     Every array is read with `np.asarray` (jax arrays implement the array
     protocol), so this never imports jax.  Columns keep their narrowed
     storage types, dictionaries, domains, zone maps, NULL masks and
-    sortedness; indexes keep their words, cumulative words, bin counts,
-    epochs and pending updates; primary-key indexes their luts.
+    sortedness; tables their deleted-row masks; indexes keep their words,
+    cumulative words, bin counts, epochs and pending updates; primary-key
+    indexes their luts.
     """
     device = torch.device(device)
     catalog = Catalog()
     for name, rt in ref_catalog.tables.items():
-        if getattr(rt, "deleted", None) is not None:
-            raise NotImplementedError(
-                f"table {name}: deleted-row masks are not ported yet")
         columns = {}
         for cname, rc in rt.columns.items():
             zm = None if rc.zone_map is None else ZoneMap(
@@ -212,7 +210,8 @@ def from_reference_catalog(ref_catalog, *, device) -> Catalog:
                 is_sorted=rc.is_sorted)
         t = Table(name=rt.name, columns=columns, num_rows=rt.num_rows,
                   capacity=rt.capacity, unique_keys=list(rt.unique_keys),
-                  version=rt.version, device=device)
+                  version=rt.version, device=device,
+                  deleted=_tensor(getattr(rt, "deleted", None), device))
         t.indexes = {c: _carry_index(ix, device)
                      for c, ix in rt.indexes.items()}
         t.pk_indexes = {c: DirectPKIndex(pk.column, _tensor(pk.lut, device),

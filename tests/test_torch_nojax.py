@@ -2,8 +2,9 @@
 
 A fresh interpreter imports the port's API, runs Q6 at SF0.01 on the CPU,
 runs statements (CREATE TABLE, INSERT, CREATE INDEX, SET), the TPC-H SQL
-text of Q21 and one sqllogic file through the port's runner, and must never
-have loaded jax or the reference package.
+text of Q21, one sqllogic file through the port's runner, a window query, a
+band join, an ASOF join, DML in a rolled-back transaction, a checkpoint and
+`open_database`, and must never have loaded jax or the reference package.
 """
 
 import os
@@ -32,8 +33,27 @@ assert conn.sql(SQL[21]).strings()[0] == ["Supplier#000000074", "9"]
 from duckdb_cubit_tpu_torch.testing.sqllogic import run_file
 assert run_file("tests/sqllogic/joins.test",
                 conn=api.Connection(device="cpu")).executed > 0
+import tempfile
+from duckdb_cubit_tpu_torch.storage.persist import open_database
+assert conn.sql("SELECT k, row_number() OVER (ORDER BY k DESC) AS r "
+                "FROM t ORDER BY k").strings() == [["1", "2"], ["2", "1"]]
+assert conn.sql("SELECT count(*) AS c FROM t a, t b WHERE a.k < b.k"
+                ).strings() == [["1"]]
+assert conn.sql("SELECT a.k, b.k AS bk FROM t a ASOF JOIN t b ON a.k > b.k"
+                ).strings() == [["2", "1"]]
+conn.sql("BEGIN")
+conn.sql("UPDATE t SET k = 5 WHERE k = 1")
+conn.sql("DELETE FROM t WHERE k = 2")
+conn.sql("ROLLBACK")
+path = tempfile.mkdtemp()
+conn.attach(path)
+conn.checkpoint()
+conn.sql("DELETE FROM t WHERE k = 1")
+assert open_database(path, device="cpu").sql(
+    "SELECT k FROM t").strings() == [["2"]]
 for m in ("sql.statements", "storage.dml", "tpch.sql_queries",
-          "testing.sqllogic", "tpch.answers"):
+          "testing.sqllogic", "tpch.answers", "ops.window",
+          "storage.persist"):
     assert "duckdb_cubit_tpu_torch." + m in sys.modules, m
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "duckdb_cubit_tpu"))

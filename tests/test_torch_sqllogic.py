@@ -4,17 +4,20 @@ The runner is the port's byte-identical copy of `testing/sqllogic.py`; each
 file of `testing/sqllogic_gate.FILES` (every committed file that needs no
 part the port lacks) runs on a fresh CPU connection of the port and must
 pass as it passes on the reference.  Each file left out must be named in
-ROADMAP.md with the item that brings what it needs (DELETE / UPDATE,
-transactions, persistence, verification, out-of-core execution, windows,
-range and asof joins).
+ROADMAP.md with the item that brings what it needs (verification,
+out-of-core execution).  The runner's `load` / `restart` reopen a database
+with `storage.persist.open_database`, which takes the card unless asked for
+another device: here it is asked for the CPU.
 """
 
+import functools
 import glob
 import os
 
 import pytest
 
 from duckdb_cubit_tpu_torch.api import Connection
+from duckdb_cubit_tpu_torch.storage import persist
 from duckdb_cubit_tpu_torch.testing import sqllogic_gate
 from duckdb_cubit_tpu_torch.testing.sqllogic import run_file
 
@@ -26,7 +29,9 @@ FILES = [os.path.join("sqllogic", f) for f in sqllogic_gate.FILES]
 
 @pytest.mark.parametrize("rel", FILES, ids=[os.path.basename(f)
                                             for f in FILES])
-def test_sqllogic_file_on_the_port(rel):
+def test_sqllogic_file_on_the_port(rel, monkeypatch):
+    monkeypatch.setattr(persist, "open_database", functools.partial(
+        persist.open_database, device="cpu"))
     report = run_file(os.path.join(HERE, rel), conn=Connection(device="cpu"))
     assert not report.skipped
     assert report.executed > 0

@@ -186,11 +186,6 @@ def test_sources_need_the_catalog_s_device():
 
 
 @pytest.mark.parametrize("sql,name", [
-    ("DELETE FROM t WHERE x = 0", "DELETE"),
-    ("UPDATE t SET x = 1", "UPDATE"),
-    ("BEGIN", "BEGIN"),
-    ("COMMIT", "COMMIT"),
-    ("ROLLBACK", "ROLLBACK"),
     ("EXPLAIN ANALYZE SELECT x FROM t", "EXPLAIN ANALYZE"),
     ("PRAGMA enable_verification", "enable_verification"),
 ])
