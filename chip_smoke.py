@@ -587,13 +587,15 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
     must = {6: {"fused_scan_sum": 1}, 3: {"monotone_gather": 1},
             12: {"monotone_gather": 1}}
     totals = {"fused_scan_sum": 0, "monotone_gather": 0}
-    out = []
+    out, text_rows = [], {}
     for n in sorted(SQL):
         def run(n=n):
             return conn.sql(SQL[n]).strings()
         retries = conn.executor.retry_count
+        compacted = conn.executor.compacted_boundaries
         rows, counts = counted(run)
         retried = conn.executor.retry_count - retries
+        compacted = conn.executor.compacted_boundaries - compacted
         want, doubles = plans["rows"][n]
         if not cells_agree(rows, want, doubles):
             raise AssertionError(f"SQL q{n} disagrees with its builder on "
@@ -619,7 +621,8 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
               f"{median:.3f} ms over {RUNS_PLANS} warm runs (builder "
               f"{b['median_ms']:.3f}); profiled: device kernels "
               f"{dev_ms:.4f} ms of {wall_ms:.4f} ms wall (builder "
-              f"{b['device_ms']:.4f})  [{card}]")
+              f"{b['device_ms']:.4f}); compacted stage inputs "
+              f"{compacted}  [{card}]")
         for row in rows[:3]:
             print("   ", row)
         out.append({"query": n, "rows": len(rows), "k1_launches": k1,
@@ -627,11 +630,13 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
                     "median_ms": median, "device_ms": dev_ms,
                     "profiled_wall_ms": wall_ms,
                     "builder_median_ms": b["median_ms"],
-                    "builder_device_ms": b["device_ms"]})
+                    "builder_device_ms": b["device_ms"],
+                    "compacted": compacted})
+        text_rows[n] = rows, doubles
     print(f"22 TPC-H SQL texts equal their builders; launches {totals}; "
           f"retries {sum(q['retries'] for q in out)}")
     print(json.dumps({"tpch_sql": out}))
-    return {"launches": totals, "queries": out}
+    return {"launches": totals, "queries": out, "rows": text_rows}
 
 
 def sqllogic_on_card(card: str):
@@ -844,15 +849,20 @@ def windows_and_joins(conn, cpu, card: str) -> dict:
     return {"launches": totals, "queries": out}
 
 
-def dml_transactions_persistence(conn, card: str) -> dict:
+def dml_transactions_persistence(conn, card: str, prepared,
+                                 q6_rows: list) -> dict:
     """DELETE / UPDATE inside a transaction on the card catalog, each query
-    after them against the numpy oracle of the mutated columns, ROLLBACK,
+    after them against the numpy oracle of the mutated columns (and the
+    prepared Q6 of the executor-modes phase: pinned, it still gives
+    `q6_rows` after the UPDATE; executed afresh, the new oracle), ROLLBACK,
     then a checkpoint of the whole catalog, a committed DELETE in the
     write-ahead log and `open_database` on the card.  Every query has the
     launch counts set to 0 just before it and read just after.
     -> {"launches": {kernel: total}, "steps": [...]}."""
     import shutil
     import tempfile
+
+    from duckdb_cubit_tpu_torch.exec.result import to_strings
 
     from duckdb_cubit_tpu_torch.storage.persist import open_database
 
@@ -901,6 +911,16 @@ def dml_transactions_persistence(conn, card: str) -> dict:
     statement(f"UPDATE lineitem SET l_discount = l_discount + 0.01 WHERE "
               f"l_orderkey <= {int(60000 * sf)} AND l_discount < 0.10")
     query("Q6", k1=1)
+    # the prepared query's launches count under the executor-modes phase
+    # ("verification"), so this phase's own counts read as before
+    pinned, counts = counted(lambda: to_strings(prepared.run_pinned()))
+    fresh, fresh_counts = counted(lambda: to_strings(prepared.execute()))
+    prepared_launches = {k: counts[k] + fresh_counts[k] for k in totals}
+    if pinned != q6_rows or fresh != oracle_of(cat, "Q6") or fresh == pinned:
+        raise AssertionError(f"prepared Q6 after the UPDATE: pinned {pinned} "
+                             f"(want {q6_rows}), fresh {fresh}")
+    print(f"  prepared Q6 pinned before the UPDATE: {pinned}, the rows of "
+          f"step 1; executed afresh: {fresh}, the new oracle")
     print("step 3: UPDATE about 1% of orders on a value-lut column of Q3")
     top = int(base["Q3"][0][0])
     statement(f"UPDATE orders SET o_shippriority = 1 WHERE o_orderkey "
@@ -963,7 +983,339 @@ def dml_transactions_persistence(conn, card: str) -> dict:
     out = {"steps": steps, "checkpoint_s": ckpt_s, "checkpoint_bytes": disk,
            "open_s": open_s}
     print(json.dumps({"dml": out}))
-    return {"launches": totals, **out}
+    return {"launches": totals, "prepared_launches": prepared_launches,
+            **out}
+
+
+def verified(conn, sql: str) -> tuple:
+    """`sql` through verification's legs, with every launch count set to 0
+    just before each leg and read just after.  -> (rows, [(leg, seconds,
+    {kernel: launches})], whether the legs agreed exactly, DOUBLE cells
+    included)."""
+    ex = conn.executor
+    counts = {}
+    real = ex._leg
+
+    def leg(name, run):
+        reset_counts()
+        out = real(name, run)
+        counts[name] = read_counts()
+        return out
+    ex._leg = leg
+    try:
+        rows = conn.sql(sql).strings()
+    finally:
+        del ex._leg
+    legs = [(name, secs, counts.get(name, {})) for name, secs in
+            ex.last_legs]
+    return rows, legs, ex.legs_exact
+
+
+def _launch_sum(counts: dict) -> dict:
+    return {k: counts.get(k, 0) for k in ("fused_scan_sum",
+                                          "monotone_gather")}
+
+
+def corrupted_index_on_card(card: str):
+    """The seeded CUBIT corruption of `tests/test_torch_verification.py`
+    on a small card table: bin 3 of the index cleared, the optimized plan
+    counts 0 rows, and verification must raise."""
+    from duckdb_cubit_tpu_torch.api import Connection
+    from duckdb_cubit_tpu_torch.index.cubit import CubitIndex
+    from duckdb_cubit_tpu_torch.storage.table import Catalog, from_numpy
+
+    data = {"k": np.arange(1, 201, dtype=np.int64),
+            "v": (np.arange(200) % 10).astype(np.int64)}
+    t = from_numpy("t", data, device="cuda")
+    t.indexes["v"] = CubitIndex.build("v", data["v"].astype(np.int32),
+                                      t.capacity, t.num_rows, 10,
+                                      device="cuda")
+    cat = Catalog()
+    cat.register(t)
+    small = Connection(cat)
+    if small.sql("SELECT count(*) AS c FROM t WHERE v = 3").strings() != \
+            [["20"]]:
+        raise AssertionError("the small card table counts wrongly")
+    words = t.indexes["v"].words.clone()
+    words[3] = 0
+    t.indexes["v"].words = words
+    t.indexes["v"]._rebuild_cum()
+    t.indexes["v"]._query_cache.clear()
+    wrong = small.sql("SELECT count(*) AS c1 FROM t WHERE v = 3").strings()
+    if wrong != [["0"]]:
+        raise AssertionError(f"the corrupted index answered {wrong}")
+    small.sql("SET enable_verification = true")
+    try:
+        small.sql("SELECT count(*) AS c2 FROM t WHERE v = 3").strings()
+    except RuntimeError as e:
+        if "verification failed" not in str(e):
+            raise
+        print(f"corrupted CUBIT index (bin 3 cleared) on the card: without "
+              f"verification count {wrong}; with it: {e}  [{card}]")
+        return
+    raise AssertionError("verification did not catch the corrupted index")
+
+
+def _profile_tree(node) -> tuple:
+    return (node["name"], node["cardinality"],
+            tuple(_profile_tree(c) for c in node["children"]))
+
+
+def executor_modes(conn, cpu, card: str) -> dict:
+    """Verification, EXPLAIN ANALYZE, prepared queries, the deadline, staged
+    against whole plan, and out-of-core execution, on the main card
+    connection; every setting it changes is restored.  -> {"launches":
+    {"verification": {kernel: n}, "external": {kernel: n}}, "prepared":
+    the prepared Q6, "q6_rows": its rows}."""
+    from duckdb_cubit_tpu_torch.api import QueryTimeoutError
+    from duckdb_cubit_tpu_torch.exec.result import to_strings
+    from duckdb_cubit_tpu_torch.plan import optimizer as opt
+    from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
+
+    cat = conn.catalog
+    launches = {"verification": {"fused_scan_sum": 0, "monotone_gather": 0},
+                "external": {"fused_scan_sum": 0, "monotone_gather": 0}}
+
+    def add(path, counts):
+        for k, v in _launch_sum(counts).items():
+            launches[path][k] += v
+
+    print("-- verification (SET enable_verification = true)")
+    cases = [("Q6", Q6), ("Q1", Q1), ("Q12", Q12), ("Q3", Q3),
+             ("SQL q3", SQL[3]), ("SQL q6", SQL[6]), ("SQL q12", SQL[12]),
+             ("SQL q16", SQL[16]),
+             ("supplier x nation", """
+                SELECT n_name, count(*) AS c, sum(s_acctbal) AS b
+                FROM supplier, nation WHERE s_nationkey = n_nationkey
+                GROUP BY n_name ORDER BY n_name""")]
+    out = []
+    for name, sql in cases:
+        plain, counts = counted(lambda: conn.sql(sql).strings())
+        plain_counts = _launch_sum(counts)
+        conn.sql("SET enable_verification = true")
+        try:
+            rows, legs, exact = verified(conn, sql)
+        finally:
+            conn.sql("SET enable_verification = false")
+        if rows != plain:
+            raise AssertionError(f"{name} verified {rows[:3]} differs from "
+                                 f"its unverified run {plain[:3]}")
+        by_leg = {leg: _launch_sum(c) for leg, _, c in legs}
+        for leg in ("production", "eager"):
+            if by_leg[leg] != plain_counts:
+                raise AssertionError(f"{name}: leg {leg} launched "
+                                     f"{by_leg[leg]}, the unverified run "
+                                     f"{plain_counts}")
+        if any(by_leg["unoptimized"].values()):
+            raise AssertionError(f"{name}: leg 3 launched "
+                                 f"{by_leg['unoptimized']}")
+        for c in by_leg.values():
+            add("verification", c)
+        names = [leg for leg, _, _ in legs]
+        if name == "supplier x nation" and names[-1] != "row-by-row":
+            raise AssertionError(f"leg 4 did not run: {names}")
+        print(f"{name}: {len(rows)} rows, equal to its unverified run; legs "
+              + "; ".join(f"{leg} {secs * 1e3:.3f} ms (K1 "
+                          f"{by_leg.get(leg, {}).get('fused_scan_sum', 0)}, "
+                          f"K2 {by_leg.get(leg, {}).get('monotone_gather', 0)}"
+                          ")" for leg, secs, _ in legs)
+              + f"; legs exactly equal: {exact}  [{card}]")
+        out.append({"query": name, "rows": len(rows), "exact": exact,
+                    "legs": [{"leg": leg, "ms": secs * 1e3,
+                              "launches": _launch_sum(c)}
+                             for leg, secs, c in legs]})
+    corrupted_index_on_card(card)
+
+    print("-- EXPLAIN ANALYZE, against the CPU catalog's")
+    for n in (3, 12):
+        sql = "EXPLAIN ANALYZE " + SQL[n]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = conn.sql(sql).strings()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        add("verification", read_counts())
+        card_json = json.loads(conn.executor.profiler.to_json(
+            conn.executor.plan))
+        cpu.sql(sql)
+        cpu_json = json.loads(cpu.executor.profiler.to_json(
+            cpu.executor.plan))
+        if _profile_tree(card_json["plan"]) != _profile_tree(cpu_json["plan"]):
+            raise AssertionError(f"EXPLAIN ANALYZE q{n}: the card's operator "
+                                 f"rows differ from the CPU run's")
+        root_ms = card_json["plan"]["time_ms"]
+        if root_ms > wall_ms:
+            raise AssertionError(f"q{n}: root {root_ms} ms > statement "
+                                 f"{wall_ms} ms")
+        print(f"EXPLAIN ANALYZE q{n} ({wall_ms:.3f} ms wall, root "
+              f"{root_ms:.3f} ms; operator rows equal the CPU run's)  "
+              f"[{card}]")
+        print(text[-1][0])
+
+    print("-- prepared queries")
+    prepared = conn.prepare(Q6)
+    q6_rows = to_strings(prepared.execute())
+    if q6_rows != oracle_of(cat, "Q6"):
+        raise AssertionError(f"prepared Q6 {q6_rows} differs from its oracle")
+    reset_counts()
+    times = []
+    for _ in range(RUNS + 2):
+        t0 = time.perf_counter()
+        to_strings(prepared.execute())
+        times.append((time.perf_counter() - t0) * 1e3)
+    add("verification", read_counts())
+    sql_times = []
+    for _ in range(RUNS + 2):
+        t0 = time.perf_counter()
+        conn.sql(Q6).strings()
+        sql_times.append((time.perf_counter() - t0) * 1e3)
+    prep_ms, sql_ms = (statistics.median(times[2:]),
+                       statistics.median(sql_times[2:]))
+    print(f"prepared Q6 {q6_rows}, equal to its oracle: median {prep_ms:.3f} "
+          f"ms over {RUNS} executes, conn.sql(Q6) {sql_ms:.3f} ms  [{card}]")
+
+    print("-- the deadline (SET query_timeout_s = 0.2)")
+    conn.sql("SET query_timeout_s = 0.2")
+    t0 = time.perf_counter()
+    try:
+        reset_counts()
+        conn.sql(SQL[13]).strings()
+    except QueryTimeoutError as e:
+        cut_s = time.perf_counter() - t0
+        print(f"SQL q13 abandoned after {cut_s:.3f} s: {e}  [{card}]")
+    else:
+        raise AssertionError("q13 finished inside a 0.2 s deadline")
+    finally:
+        conn.sql("SET query_timeout_s = 0")
+    torch.cuda.synchronize()
+    add("verification", read_counts())
+    rows, counts = counted(lambda: conn.sql(Q6).strings(), "fused_scan_sum")
+    add("verification", counts)
+    if rows != oracle_of(cat, "Q6"):
+        raise AssertionError("Q6 after the deadline differs from its oracle")
+    print(f"then, the deadline off: Q6 {rows}, equal to its oracle")
+
+    print("-- out of core (SET force_external = true, decode off)")
+    ex = conn.executor
+    ext = {}
+
+    def external(name, sql, want):
+        p0, s0 = ex.external_passes, ex.external_chunks_skipped
+        rows, counts = counted(lambda: conn.sql(sql).strings())
+        passes = ex.external_passes - p0
+        skipped = ex.external_chunks_skipped - s0
+        add("external", counts)
+        if not rows_agree(rows, want):
+            raise AssertionError(f"{name} out of core {rows[:3]} differs "
+                                 f"from its oracle {want[:3]}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            conn.sql(sql).strings()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ext[name] = {"passes": passes, "skipped": skipped,
+                     "median_ms": statistics.median(times[2:]),
+                     "launches": _launch_sum(counts)}
+        print(f"{name}: equal to its oracle; passes {passes}, chunks "
+              f"skipped {skipped}, K1 {counts['fused_scan_sum']}, K2 "
+              f"{counts['monotone_gather']}; median "
+              f"{ext[name]['median_ms']:.3f} ms over 3 warm runs  [{card}]")
+        return passes, counts
+
+    saved = {k: getattr(conn.config, k) for k in (
+        "force_external", "memory_limit", "index_scan_max_count",
+        "index_scan_percentage")}
+    try:
+        conn.sql("SET index_scan_max_count = 0")
+        conn.sql("SET index_scan_percentage = 0.0")
+        conn.sql("SET force_external = true")
+        for name in ("Q1", "Q6"):
+            passes, counts = external(f"{name} forced external",
+                                      {"Q1": Q1, "Q6": Q6}[name],
+                                      oracle_of(cat, name))
+            if passes < 4:
+                raise AssertionError(f"{name} ran {passes} passes")
+            if name == "Q6" and counts["fused_scan_sum"]:
+                raise AssertionError("K1 launched in a chunked pass")
+        passes, _ = external("Q12 forced external", Q12,
+                             oracle_of(cat, "Q12"))
+        print(f"Q12's aggregate stage (the join fused into it) "
+              f"{'chunked into ' + str(passes) + ' passes' if passes else 'ran in one pass'}")
+        conn.sql("SET force_external = false")
+        conn.sql(f"SET memory_limit = {256 << 20}")
+        plan = opt.optimize(conn.binder.bind_sql(Q1), cat)
+        ex._prepare(plan)
+        scan = next(op for op in plan.walk() if op.name == "table_scan")
+        est = ex.working_set(scan, 0)
+        want_passes = ex.chunk_count(scan, 0) or 0
+        passes, _ = external("Q1 under memory_limit = 256 MiB", Q1,
+                             oracle_of(cat, "Q1"))
+        print(f"Q1's stage estimate {est} B against 268435456 B: "
+              f"_chunk_plan predicts {want_passes} passes, ran {passes}")
+        if passes != want_passes:
+            raise AssertionError(f"Q1 ran {passes} passes, _chunk_plan "
+                                 f"predicts {want_passes}")
+    finally:
+        for k, v in saved.items():
+            setattr(conn.config, k, v)
+    result = {"verification": out, "prepared_ms": prep_ms, "sql_ms": sql_ms,
+              "external": ext}
+    print(json.dumps({"executor_modes": result}))
+    return {"launches": launches, "prepared": prepared, "q6_rows": q6_rows}
+
+
+def staged_against_whole_plan(conn, texts: dict, card: str) -> dict:
+    """The four SQL queries and the 22 SQL texts on both paths, the whole
+    plan (`staged_execution = false`) held against the staged rows; three
+    rounds of one staged and one whole-plan run, interleaved so that both
+    medians see the same host; each query's compacted boundaries."""
+    from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
+
+    cat = conn.catalog
+    cases = [(name, sql, oracle_of(cat, name), None)
+             for name, sql in (("Q6", Q6), ("Q1", Q1), ("Q12", Q12),
+                               ("Q3", Q3))]
+    cases += [(f"SQL q{n}", SQL[n], *texts["rows"][n]) for n in sorted(SQL)]
+
+    def run(sql, staged):
+        conn.config.staged_execution = staged
+        t0 = time.perf_counter()
+        rows = conn.sql(sql).strings()
+        return rows, (time.perf_counter() - t0) * 1e3
+
+    out, total = [], {"staged": 0.0, "whole": 0.0}
+    try:
+        for name, sql, want, doubles in cases:
+            ex = conn.executor
+            b0 = ex.compacted_boundaries
+            rows, _ = run(sql, True)
+            compacted = ex.compacted_boundaries - b0
+            whole_rows, _ = run(sql, False)
+            for label, got in (("staged", rows), ("whole plan", whole_rows)):
+                ok = rows_agree(got, want) if doubles is None else \
+                    cells_agree(got, want, doubles)
+                if not ok:
+                    raise AssertionError(f"{name} {label} {got[:3]} differs "
+                                         f"from {want[:3]}")
+            times = {True: [], False: []}
+            for _ in range(3):
+                for staged in (True, False):
+                    times[staged].append(run(sql, staged)[1])
+            s_ms, w_ms = (statistics.median(times[True]),
+                          statistics.median(times[False]))
+            total["staged"] += s_ms
+            total["whole"] += w_ms
+            out.append({"query": name, "staged_ms": s_ms, "whole_ms": w_ms,
+                        "compacted": compacted})
+            print(f"{name}: staged and whole plan equal; median staged "
+                  f"{s_ms:.3f} ms ({compacted} compacted boundaries), whole "
+                  f"plan {w_ms:.3f} ms  [{card}]")
+    finally:
+        conn.config.staged_execution = True
+    print(f"staged medians sum to {total['staged']:.3f} ms, whole plan "
+          f"{total['whole']:.3f} ms (4 queries and 22 texts)  [{card}]")
+    print(json.dumps({"staged_vs_whole": out}))
+    return {"queries": out, "total": total}
 
 
 def k2_parity_cases():
@@ -1570,10 +1922,13 @@ def main() -> int:
     launches["monotone_gather"] = 0
     for name, sql in (("Q1", Q1), ("Q12", Q12), ("Q3", Q3)):
         print(conn.explain(sql))
+        compacted = conn.executor.compacted_boundaries
         rows, counts = counted(lambda: conn.sql(sql).strings())
+        compacted = conn.executor.compacted_boundaries - compacted
         k2_launches = counts["monotone_gather"]
         want = oracle_of(cat, name)
-        print(f"{name}: {len(rows)} rows, K2 launches = {k2_launches}")
+        print(f"{name}: {len(rows)} rows, K2 launches = {k2_launches}, "
+              f"compacted stage inputs {compacted}")
         for row in rows[:4]:
             print("   ", row)
         if not rows_agree(rows, want):
@@ -1612,7 +1967,8 @@ def main() -> int:
     phase("sqllogic")
     sqllogic_on_card(card)
     phase(f"windows, range and ASOF joins at SF{args.sf:g}")
-    windows = windows_and_joins(conn, plans.pop("cpu"), card)
+    cpu = plans.pop("cpu")
+    windows = windows_and_joins(conn, cpu, card)
 
     phase("timing")
     print("card:", card)
@@ -1725,13 +2081,23 @@ def main() -> int:
     print(json.dumps(line))
     print(f"bench launches: K1 {counts['fused_scan_sum']}, K2 "
           f"{counts['monotone_gather']}")
+    phase(f"verification, EXPLAIN ANALYZE, prepared queries, the deadline "
+          f"and out-of-core at SF{args.sf:g}")
+    modes = executor_modes(conn, cpu, card)
+    del cpu
+    print("-- staged against whole plan, the four queries and the 22 texts")
+    staged_against_whole_plan(conn, texts, card)
     # last: it mutates the catalog every earlier phase read
     phase(f"DML, transactions and persistence at SF{args.sf:g}")
-    dml = dml_transactions_persistence(conn, card)
+    dml = dml_transactions_persistence(conn, card, modes["prepared"],
+                                       modes["q6_rows"])
     by_path = {name: {"sql": launches[name],
                       "tpch_plans": plans["launches"][name],
                       "tpch_sql": texts["launches"][name],
                       "windows": windows["launches"][name],
+                      "verification": modes["launches"]["verification"][name]
+                      + dml["prepared_launches"][name],
+                      "external": modes["launches"]["external"][name],
                       "dml": dml["launches"][name]}
                for name in plans["launches"]}
     for name, paths in by_path.items():

@@ -14,11 +14,19 @@ A transaction is a catalog snapshot (`Catalog.snapshot`): ROLLBACK restores
 it.  Durability (`storage/persist.py`): after `attach(path)` every DDL / DML
 statement that succeeds, CREATE TABLE AS included, is appended to the
 directory's write-ahead log (inside a transaction, buffered until COMMIT),
-and `checkpoint()` writes the catalog and truncates the log.  Prepared
-statements and meshes come later.
+and `checkpoint()` writes the catalog and truncates the log.
+
+`prepare(sql)` / `prepare_plan(plan)` bind and optimize once; each
+`execute()` re-resolves when a table changes (`exec/executor.PreparedQuery`).
+`sql(q, profile=True)` and `execute_plan(plan, profile=True)` time every
+operator (`conn.executor.profiler`).  `SET query_timeout_s = x` abandons a
+SELECT that takes longer with `QueryTimeoutError`.  Meshes come later.
 """
 
 from __future__ import annotations
+
+import signal
+import threading
 
 import torch
 
@@ -62,6 +70,46 @@ class Result:
         head = [" | ".join(r) for r in rows[:20]]
         more = f"\n... ({len(rows)} rows)" if len(rows) > 20 else ""
         return "\n".join(head) + more
+
+
+class QueryTimeoutError(RuntimeError):
+    """A SELECT exceeded `config.query_timeout_s`: it is abandoned and the
+    session stays usable.  The deadline is a SIGALRM handler, which runs
+    only between Python steps: a device wait in progress is not cut short,
+    and kernels already queued on the card finish after the exception.  A
+    query cut short leaves no half-set state: the prepare cache is written
+    in one step, once a plan's decisions are all made."""
+
+
+class _QueryDeadline:
+    """SIGALRM-based per-query deadline (main thread only; a no-op
+    elsewhere: other threads cannot receive SIGALRM)."""
+
+    def __init__(self, seconds: float):
+        self.seconds = seconds
+        self.active = False
+
+    def __enter__(self):
+        off_main = (threading.current_thread()
+                    is not threading.main_thread())
+        if self.seconds <= 0 or off_main:
+            return self
+
+        def raise_timeout(signum, frame):
+            raise QueryTimeoutError(
+                f"query exceeded {self.seconds:.1f}s deadline "
+                f"(SET query_timeout_s = 0 to disable)")
+
+        self._old = signal.signal(signal.SIGALRM, raise_timeout)
+        signal.setitimer(signal.ITIMER_REAL, self.seconds)
+        self.active = True
+        return self
+
+    def __exit__(self, *exc):
+        if self.active:
+            signal.setitimer(signal.ITIMER_REAL, 0)
+            signal.signal(signal.SIGALRM, self._old)
+        return False
 
 
 class Connection:
@@ -126,14 +174,23 @@ class Connection:
         return self
 
     # ------------------------------------------------------------- querying
-    def sql(self, query: str) -> Result:
+    def sql(self, query: str, profile: bool = False) -> Result:
         from .sql import statements
         from .sql.parser import parse_statement
 
         stmt = parse_statement(query)
         if isinstance(stmt, A.SelectStmt):
-            statements.refuse_unported_settings(self.config)
-            return Result(self.executor.execute(self.binder.bind(stmt)))
+            # the deadline covers a SELECT only: DML and transactions are
+            # never cut midway
+            timeout = self.config.query_timeout_s
+            with _QueryDeadline(timeout):
+                rel = self.executor.execute(self.binder.bind(stmt),
+                                            profile=profile)
+                # the result's count is where a long device queue blocks:
+                # read it inside the deadline when one is set
+                if timeout > 0:
+                    rel.count()
+            return Result(rel)
         status, rows = statements.execute_statement(self, stmt)
         if (self.db_path and not self._wal_replaying
                 and isinstance(stmt, _LOGGED)):
@@ -173,8 +230,20 @@ class Connection:
         self._txn_snapshot = None
         self._txn_wal = None
 
-    def execute_plan(self, plan) -> Result:
-        return Result(self.executor.execute(plan))
+    def execute_plan(self, plan, profile: bool = False) -> Result:
+        return Result(self.executor.execute(plan, profile=profile))
+
+    def prepare(self, query: str):
+        """Parse, bind and optimize once; the returned PreparedQuery's
+        `execute()` runs the plan, re-resolving when a table changes."""
+        from .exec.executor import PreparedQuery
+
+        return PreparedQuery(self.executor, self.binder.bind_sql(query))
+
+    def prepare_plan(self, plan):
+        from .exec.executor import PreparedQuery
+
+        return PreparedQuery(self.executor, plan)
 
     def tpch_query(self, n: int) -> Result:
         from .tpch import queries

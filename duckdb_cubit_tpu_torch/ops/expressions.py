@@ -563,6 +563,9 @@ class Case(Expr):
         t, o = self.then.eval(ctx), self.other.eval(ctx)
         dev = _device_of(c, t.array, o.array)
         c = _as_tensor(c, dev)
+        if c.dtype != torch.bool:
+            # a numeric condition (CASE WHEN 1 ...): nonzero is true
+            c = c != 0
         v = None
         if t.valid is not None or o.valid is not None:
             tv = t.valid if t.valid is not None else torch.ones_like(c)

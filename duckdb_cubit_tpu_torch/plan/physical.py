@@ -88,16 +88,30 @@ class Relation:
 
 
 class ExecContext:
-    def __init__(self, catalog, config=None):
+    def __init__(self, catalog, config=None, profiler=None):
         self.catalog = catalog
         self.config = config
+        # EXPLAIN ANALYZE: times and counts every operator (exec/profiler.py)
+        self.profiler = profiler
+        # verification leg 3: the direct-address and fused fast paths stay
+        # off, so the generic operator paths confirm the result on their own
+        self.verify_mode = False
+        # an out-of-core pass: the fused scan-sum declines (its inputs are
+        # whole-table shaped)
+        self.no_fused = False
+        # id(scan) -> (lo, hi, row_limit): the row range an out-of-core pass
+        # hands its driving scan
+        self.scan_chunks: dict[int, tuple[int, int, int]] = {}
         # deferred runtime assertions (name, 0-d bool tensor), read by the
         # executor after the run
         self.checks: list[tuple[str, object]] = []
-        # id(op) -> the op's position in plan.walk(), so a failed check
-        # names the operator the executor's retry flips
+        # id(op) -> the op's position in the operator list the executor
+        # retries over (plan.walk(), or a stage's operators), so a failed
+        # check names the operator the executor's retry flips
         self.check_tags: dict[int, int] = {}
-        # id(op) -> its output, so a subtree shared by two parents runs once
+        # id(op) -> its output, so a subtree shared by two parents runs once;
+        # the staged executor puts each stage input here before the stage
+        # runs
         self._cache: dict[int, Relation] = {}
 
     def add_check(self, op, kind: str, ok, cap: int = 0):
@@ -122,9 +136,21 @@ class PhysicalOperator:
 
     def execute(self, ctx: ExecContext) -> Relation:
         key = id(self)
-        if key not in ctx._cache:
-            ctx._cache[key] = self._execute(ctx)
-        return ctx._cache[key]
+        if key in ctx._cache:
+            return ctx._cache[key]
+        if ctx.profiler is not None:
+            with ctx.profiler.operator(self):
+                out = self._execute(ctx)
+                # wait for the card, so that an operator's time holds its
+                # own kernels (and its children's) and no one else's
+                if out.mask.is_cuda:
+                    torch.cuda.synchronize(out.mask.device)
+                if ctx.profiler.measure_cardinality:
+                    ctx.profiler.record_cardinality(self, out.count())
+        else:
+            out = self._execute(ctx)
+        ctx._cache[key] = out
+        return out
 
     def _execute(self, ctx: ExecContext) -> Relation:
         raise NotImplementedError
@@ -290,25 +316,41 @@ class TableScan(PhysicalOperator):
         table = ctx.catalog.table(self.table_name)
         if not hasattr(self, "_words"):
             self.prepare(ctx)
-        capacity = table.capacity
         names = self.needed_columns(table)
+        words = self._words
+        chunk = ctx.scan_chunks.get(id(self))
+        if chunk is None:
+            lo, hi = 0, table.capacity
+            base_mask = table.row_mask()
+        else:
+            # an out-of-core pass: rows [lo, hi) of the table (lo and hi are
+            # multiples of 32, so the index words slice along), the first
+            # row_limit of them live; no column claims `monotone` here
+            lo, hi, row_limit = chunk
+            base_mask = torch.arange(hi - lo, device=table.device) < row_limit
+            if table.deleted is not None:
+                base_mask = base_mask & ~table.deleted[lo:hi]
+            if words is not None:
+                words = words[lo // 32:hi // 32]
+        capacity = hi - lo
         rel = Relation(
-            {n: RelColumn(table.columns[n].data, table.columns[n].dtype,
+            {n: RelColumn(table.columns[n].data[lo:hi], table.columns[n].dtype,
                           table.columns[n].dictionary,
                           table.columns[n].domain,
                           valid=None if table.columns[n].nulls is None
-                          else ~table.columns[n].nulls,
-                          monotone=table.columns[n].is_sorted)
+                          else ~table.columns[n].nulls[lo:hi],
+                          monotone=chunk is None
+                          and table.columns[n].is_sorted)
              for n in names},
-            table.row_mask(),
+            base_mask,
             capacity)
         if getattr(self, "always_false", False):
             # statistics propagation proved the filters unsatisfiable
             return rel.with_mask(torch.zeros(capacity, dtype=torch.bool,
                                              device=table.device))
         mask = rel.mask
-        if self._words is not None:
-            mask = mask & bm.expand(self._words, capacity)
+        if words is not None:
+            mask = mask & bm.expand(words, capacity)
         for f in self.filters:
             mask = mask & as_mask(rel.evaluate(f))
         rel = rel.with_mask(mask)
@@ -616,7 +658,7 @@ class HashJoin(PhysicalOperator):
         table = ctx.catalog.table(base)
         pkidx = table.pk_indexes[col]
         kcol = probe_rel.columns[self.probe_keys[0]]
-        if not self._kernel_probe_eligible(kcol, probe_rel, max_key,
+        if not self._kernel_probe_eligible(ctx, kcol, probe_rel, max_key,
                                            build_rel):
             row, found = pkidx.probe(kcol.array, probe_rel.mask,
                                      build_rel.mask)
@@ -658,12 +700,12 @@ class HashJoin(PhysicalOperator):
                 and build_rel.columns[n].valid is None
                 and self.build_prefix + n not in probe_rel.columns]
 
-    def _kernel_probe_eligible(self, kcol, probe_rel, max_key,
+    def _kernel_probe_eligible(self, ctx, kcol, probe_rel, max_key,
                                build_rel) -> bool:
-        """Host gate of the kernel probe: sorted base-aligned probe keys
-        (the array is the full storage column, so key density matches
-        storage density), no NULL keys, and the kernel's size gate."""
-        if getattr(self, "_no_kernel_probe", False):
+        """Host gate of the kernel probe: sorted probe keys (the storage
+        column, or a compaction of it that keeps its order), no NULL keys,
+        the kernel's size gate, and not verification's leg 3."""
+        if getattr(self, "_no_kernel_probe", False) or ctx.verify_mode:
             return False
         if not kcol.monotone or max_key + 1 >= 2**31:
             return False
@@ -678,7 +720,7 @@ class HashJoin(PhysicalOperator):
         build_rel = self.children[1].execute(ctx)
         if not hasattr(self, "_pk"):
             self.prepare(ctx)
-        if self._pk is not None and (
+        if self._pk is not None and not ctx.verify_mode and (
                 self.single_match or self.join_type in ("semi", "anti")):
             if self.join_type in ("semi", "anti"):
                 found = self._pk_probe(ctx, probe_rel, build_rel)[1]
@@ -689,7 +731,7 @@ class HashJoin(PhysicalOperator):
                 self._value_fetches(probe_rel, build_rel))
             return self._gather_single(probe_rel, build_rel, build_row,
                                        found, kc, values)
-        if self._reverse_pk is not None:
+        if self._reverse_pk is not None and not ctx.verify_mode:
             # the probe side owns the PK: one scatter of the build side's
             # hits into a probe-row flag array instead of a hash build
             base, _, max_key = self._reverse_pk
@@ -713,7 +755,7 @@ class HashJoin(PhysicalOperator):
             return probe_rel.with_mask(join_ops.semi_mask(
                 bs, pkey, probe_rel.mask, anti=self.join_type == "anti"))
         if self.single_match and not getattr(self, "_force_expand", False) \
-                and self.join_type != "full":
+                and not ctx.verify_mode and self.join_type != "full":
             entry = join_ops.probe(bs, pkey, probe_rel.mask)
             found = entry >= 0
             safe_e = entry.clamp(min=0).to(torch.int64)
@@ -1189,7 +1231,7 @@ class GroupAggregate(PhysicalOperator):
         self._prepare_kernel(ctx)
 
     def _execute(self, ctx):
-        fused = self._fused_scan_sum(ctx)
+        fused = None if ctx.verify_mode else self._fused_scan_sum(ctx)
         if fused is not None:
             return fused
         rel = self.children[0].execute(ctx)
@@ -1306,6 +1348,8 @@ class GroupAggregate(PhysicalOperator):
          - otherwise (SET use_pallas = false, unprovable bounds): the
            expanded mask times the int64 product, with exact split sums.
         """
+        if ctx.no_fused:
+            return None
         info = self._fused_pattern(ctx)
         if info is None:
             return None
@@ -1333,9 +1377,9 @@ class GroupAggregate(PhysicalOperator):
         return Relation(out, (cnt > 0).reshape(1), 1)
 
     def _grouped(self, ctx, rel, evaluated):
-        """GROUP BY: FK-dense, dense mixed-radix or sort-based group ids,
-        then `_aggregate`."""
-        if self._fk_dense is not None:
+        """GROUP BY: FK-dense (not in verification's leg 3), dense
+        mixed-radix or sort-based group ids, then `_aggregate`."""
+        if self._fk_dense is not None and not ctx.verify_mode:
             pk_table, pk_col, max_key, num_groups = self._fk_dense
             lut = ctx.catalog.table(pk_table).pk_indexes[pk_col].lut
             key = rel.columns[self.keys[0]].array.to(torch.int64)

@@ -6,12 +6,10 @@ storage (`storage/table.from_numpy`, `storage/dml`), indexes and
 replaces it), so the executor's prepare cache never serves a plan built
 for the old table.  DELETE and UPDATE find their rows by running the WHERE
 predicate through the query path (`_match_rows`); BEGIN / COMMIT /
-ROLLBACK go to the connection's snapshot transactions (`api.py`).
-
-Statements and settings the port does not run yet raise
-NotImplementedError by name instead of being accepted and ignored: EXPLAIN
-ANALYZE and PRAGMA enable_verification; and a SELECT while
-`enable_verification`, `force_external` or `query_timeout_s > 0` is set.
+ROLLBACK go to the connection's snapshot transactions (`api.py`).  EXPLAIN
+ANALYZE runs the optimized plan once with the profiler and appends each
+operator's milliseconds and rows; PRAGMA enable_verification /
+disable_verification set the session's verification.
 """
 
 from __future__ import annotations
@@ -33,17 +31,6 @@ from . import ast as A
 
 class StatementError(ValueError):
     pass
-
-
-def refuse_unported_settings(config):
-    """Raise, by name, on a setting whose execution mode the port lacks: a
-    query under it would otherwise run without what the setting asks."""
-    if config.enable_verification:
-        raise NotImplementedError("enable_verification: not ported yet")
-    if config.force_external:
-        raise NotImplementedError("force_external: not ported yet")
-    if config.query_timeout_s > 0:
-        raise NotImplementedError("query_timeout_s: not ported yet")
 
 
 _TYPE_MAP = {
@@ -120,7 +107,7 @@ def _match_rows(conn, table_name: str, where) -> np.ndarray:
         return np.nonzero(table.row_mask().cpu().numpy())[0]
     expr = conn.binder.bind_table_expr(table_name, where)
     rel = conn.executor.execute(TableScan(table_name, filters=[expr]),
-                                optimize=False)
+                                optimize=False, verify=False)
     return np.nonzero(rel.mask.cpu().numpy())[0]
 
 
@@ -158,7 +145,6 @@ def _cast_values(t, dtype: DataType, rowids: np.ndarray) -> np.ndarray:
 def _create_table_as(conn, stmt):
     if stmt.name in conn.catalog.tables:
         raise StatementError(f"table {stmt.name} already exists")
-    refuse_unported_settings(conn.config)
     rel = conn.executor.execute(conn.binder.bind(stmt.select))
     mask = rel.mask.cpu().numpy()
     data, schema, nullmasks = {}, {}, {}
@@ -171,7 +157,10 @@ def _create_table_as(conn, stmt):
         if c.dictionary is not None:
             data[cname] = np.asarray(c.dictionary)[arr]
         else:
-            data[cname] = arr
+            # a narrowed int8 / int16 column widens for the ingest (the
+            # reference passes it on and its from_numpy refuses it)
+            data[cname] = arr.astype(np.int32) \
+                if arr.dtype in (np.int8, np.int16) else arr
             schema[cname] = c.dtype
     t = from_numpy(stmt.name, data, schema or None, device=conn.device)
     for cname, nm in nullmasks.items():
@@ -277,7 +266,7 @@ def _update(conn, stmt):
             # a general expression over the table's rows
             if rel is None:
                 rel = conn.executor.execute(TableScan(stmt.table),
-                                            optimize=False)
+                                            optimize=False, verify=False)
             t = rel.evaluate(conn.binder.bind_table_expr(stmt.table, expr))
             vals = _cast_values(t, dtype, rowids)
             nulls = None if t.valid is None else \
@@ -295,8 +284,6 @@ def _transaction(conn, stmt):
 
 
 def _explain(conn, stmt):
-    if stmt.analyze:
-        raise NotImplementedError("EXPLAIN ANALYZE: not ported yet")
     from ..plan import optimizer as opt
 
     plan = opt.optimize(conn.binder.bind(stmt.query), conn.catalog)
@@ -308,6 +295,10 @@ def _explain(conn, stmt):
             walk(c, d + 1)
 
     walk(plan, 0)
+    if stmt.analyze:
+        # the plan above, run once with the profiler (already optimized)
+        conn.executor.execute(plan, profile=True, optimize=False)
+        lines.append(conn.executor.profiler.render(plan))
     return "EXPLAIN", [[line] for line in lines]
 
 
@@ -325,11 +316,10 @@ def _pragma(conn, stmt):
 
         return "PRAGMA tpch", R.to_strings(
             queries.run(conn.executor, int(stmt.args[0])))
-    if name == "enable_verification":
-        raise NotImplementedError("PRAGMA enable_verification: not ported "
-                                  "yet")
-    if name == "disable_verification":
-        conn.config.enable_verification = False
+    if name in ("enable_verification", "disable_verification"):
+        # every later SELECT runs through the legs of
+        # exec/executor._execute_verified, which must agree
+        conn.config.enable_verification = name == "enable_verification"
         return f"PRAGMA {name}", []
     if name in _NOOP_PRAGMAS:
         return f"PRAGMA {name}", []

@@ -4,7 +4,9 @@ A fresh interpreter imports the port's API, runs Q6 at SF0.01 on the CPU,
 runs statements (CREATE TABLE, INSERT, CREATE INDEX, SET), the TPC-H SQL
 text of Q21, one sqllogic file through the port's runner, a window query, a
 band join, an ASOF join, DML in a rolled-back transaction, a checkpoint and
-`open_database`, and must never have loaded jax or the reference package.
+`open_database`; then a verified query (leg 4 included), EXPLAIN ANALYZE, a
+prepared query and a query forced out of core; and must never have loaded
+jax or the reference package.
 """
 
 import os
@@ -51,9 +53,23 @@ conn.checkpoint()
 conn.sql("DELETE FROM t WHERE k = 1")
 assert open_database(path, device="cpu").sql(
     "SELECT k FROM t").strings() == [["2"]]
+conn.sql("PRAGMA enable_verification")
+assert conn.sql("SELECT n_regionkey, count(*) AS c FROM nation "
+                "GROUP BY n_regionkey ORDER BY n_regionkey").strings()[0] \
+    == ["0", "5"]
+assert conn.executor.last_legs[-1][0] == "row-by-row"
+conn.sql("PRAGMA disable_verification")
+assert "rows]" in conn.sql("EXPLAIN ANALYZE SELECT count(*) AS c "
+                           "FROM region").strings()[-1][0]
+assert api.R.to_strings(conn.prepare("SELECT count(*) AS c FROM region")
+                        .execute()) == [["5"]]
+conn.sql("SET force_external = true")
+assert conn.sql("SELECT l_returnflag, count(*) AS c FROM lineitem GROUP BY "
+                "l_returnflag ORDER BY l_returnflag").strings()[0][0] == "A"
+assert conn.executor.external_passes >= 4
 for m in ("sql.statements", "storage.dml", "tpch.sql_queries",
           "testing.sqllogic", "tpch.answers", "ops.window",
-          "storage.persist"):
+          "storage.persist", "exec.pyverify", "exec.profiler"):
     assert "duckdb_cubit_tpu_torch." + m in sys.modules, m
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "duckdb_cubit_tpu"))

@@ -157,8 +157,21 @@ def test_fused_path_without_decode(ref_conn, port_conns, monkeypatch,
     ("PRAGMA enable_verification", "enable_verification"),
 ])
 def test_unported_parts_raise_by_name(port_conns, sql, name):
-    with pytest.raises(NotImplementedError, match=name):
-        port_conns["generated"].sql(sql)
+    """Both raised by name until the port had the profiler and
+    verification; now both run (nation has 25 rows)."""
+    conn = port_conns["generated"]
+    try:
+        out = conn.sql(sql).strings()
+        if name == "EXPLAIN ANALYZE":
+            assert " ms, 1 rows]" in out[-1][0].split("\n")[0]
+            assert "table_scan(nation, filters=0)" in out[-1][0]
+            assert ", 25 rows]" in out[-1][0]
+        else:
+            assert conn.config.enable_verification
+            assert conn.sql("SELECT count(*) AS c FROM nation").strings() \
+                == [["25"]]
+    finally:
+        conn.config.enable_verification = False
 
 
 def test_connection_refuses_a_catalog_on_another_device(port_conns):

@@ -4,8 +4,8 @@ The runner is the port's byte-identical copy of `testing/sqllogic.py`; each
 file of `testing/sqllogic_gate.FILES` (every committed file that needs no
 part the port lacks) runs on a fresh CPU connection of the port and must
 pass as it passes on the reference.  Each file left out must be named in
-ROADMAP.md with the item that brings what it needs (verification,
-out-of-core execution).  The runner's `load` / `restart` reopen a database
+ROADMAP.md with its reason (the missing golden answers, a reference
+fault).  The runner's `load` / `restart` reopen a database
 with `storage.persist.open_database`, which takes the card unless asked for
 another device: here it is asked for the CPU.
 """

@@ -190,24 +190,41 @@ def test_sources_need_the_catalog_s_device():
     ("PRAGMA enable_verification", "enable_verification"),
 ])
 def test_unported_statements_raise_by_name(conns, sql, name):
+    """Both statements raised by name until the port had the profiler and
+    verification; now EXPLAIN ANALYZE appends each operator's ms and rows,
+    and the PRAGMA turns verification on; the session answers as before."""
     _, port = conns
-    with pytest.raises(NotImplementedError, match=name):
-        port.sql(sql)
-    assert port.sql("SELECT count(*) AS n FROM t").strings() == [["5"]]
+    try:
+        out = port.sql(sql).strings()
+        if name == "EXPLAIN ANALYZE":
+            tree = out[-1][0].split("\n")
+            assert tree[0].startswith("project  [")
+            assert tree[1].startswith("  table_scan(t, filters=0)  [")
+            assert all(line.endswith(" ms, 5 rows]") for line in tree[:2])
+        else:
+            assert port.config.enable_verification
+        assert port.sql("SELECT count(*) AS n FROM t").strings() == [["5"]]
+    finally:
+        port.config.enable_verification = False
 
 
 @pytest.mark.parametrize("setting,value", [
     ("enable_verification", "true"), ("force_external", "true"),
     ("query_timeout_s", "5")])
 def test_unported_settings_refuse_queries_by_name(setting, value):
-    """SET takes the value, and every later query raises by name instead of
-    running without what the setting asks; SET back, queries run again."""
+    """The three settings refused every query by name until the port ran
+    what each asks; now SET takes the value and queries (a CREATE TABLE AS
+    too) run under it: verified through their legs, out of core where a
+    stage is large enough to split, under the deadline.  SET back, queries
+    run as before."""
     conn = Connection(device="cpu")
     conn.register_numpy("t", {"x": np.arange(4, dtype=np.int64)})
     conn.sql(f"SET {setting} = {value}")
-    for sql in ("SELECT count(*) AS n FROM t",
-                "CREATE TABLE u AS SELECT x FROM t"):
-        with pytest.raises(NotImplementedError, match=setting):
-            conn.sql(sql)
+    assert conn.sql("SELECT count(*) AS n FROM t").strings() == [["4"]]
+    if setting == "enable_verification":
+        assert [leg for leg, _ in conn.executor.last_legs] == [
+            "production", "eager", "unoptimized", "row-by-row"]
+    conn.sql("CREATE TABLE u AS SELECT x FROM t")
+    assert conn.sql("SELECT sum(x) AS s FROM u").strings() == [["6"]]
     setattr(conn.config, setting, type(getattr(conn.config, setting))())
     assert conn.sql("SELECT count(*) AS n FROM t").strings() == [["4"]]
