@@ -110,7 +110,26 @@ raises on failure (non-zero exit):
      variants and the l_orderkey ->
      orders probes; K1 and K2 must launch).  Each checks its own results
      and prints its times;
- 11. DML, transactions and persistence, last because it mutates the
+ 11. executor modes: verification, EXPLAIN ANALYZE, prepared queries, the
+     deadline, staged against whole plan and out of core;
+ 12. mesh: the parallel steps (`duckdb_cubit_tpu_torch/parallel/`) on a
+     one-rank NCCL process group on the card (one H100: NCCL puts no two
+     ranks on one device, so this shows the collectives run and agree, and
+     claims no scaling), each equal to its single-device counterpart and
+     an oracle: Q6's step over the three predicate words of Q6's CUBIT
+     indexes (the phase-4 revenue, `masked_sum_exact`, K1 on the same
+     words), the grouped step over Q1's (l_returnflag, l_linestatus) code
+     and l_quantity (`group_sum_exact`, `group_count`), the partitioned and
+     pipelined (4 chunks) joins of lineitem.l_orderkey against
+     orders.o_orderkey (a numpy oracle of sum l_quantity * o_custkey,
+     overflow 0) and the requota on l_orderkey from a quarter of the rows
+     (3 rounds, 4x the quota, every key kept).  Each step's median warm
+     time beside its single-device counterpart's;
+ 13. entry point: shell: `python -m duckdb_cubit_tpu_torch.shell --sf
+     0.01` driven through stdin (`\\timing`, `\\d`, `\\tpch 6`, a
+     multi-line SELECT, `\\q`), its lines equal to `conn.sql` /
+     `tpch_query` on a card catalog at SF0.01;
+ 14. DML, transactions and persistence, last because it mutates the
      catalog: BEGIN; UPDATE of l_discount over about 1% of lineitem (Q6
      equal to its numpy oracle over the mutated columns, K1 launches once);
      UPDATE of o_shippriority (a column Q3's K2 pass fetches through a
@@ -238,6 +257,13 @@ RUNS = 20
 RUNS_PLANS = 10
 # warm runs behind each window / range / ASOF query's median
 RUNS_WINDOWS = 10
+# warm runs behind each mesh step's median
+RUNS_MESH = 10
+# the shell phase's SELECT: one statement over four lines
+SHELL_SELECT = """SELECT l_returnflag, l_linestatus, count(*) AS c,
+       sum(l_quantity) AS q
+  FROM lineitem WHERE l_shipdate <= CAST('1998-09-02' AS date)
+ GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus;"""
 
 
 def phase(name: str):
@@ -1847,6 +1873,239 @@ def pk_probe_profile(conn, sql: str) -> tuple[float, float]:
     return k2, sum(kernels.values()) - k2
 
 
+def median_wall_ms(fn, device, runs: int = RUNS_MESH) -> float:
+    """Median host ms of `fn` over warm calls, each ended by a synchronize
+    (the requota reads a scalar per round, so device time alone would miss
+    its waits)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_steps(conn, q6_revenue: str, card: str,
+               backend: str = "nccl") -> dict:
+    """The mesh layer's steps on a one-rank process group over the loaded
+    catalog, each equal to its single-device counterpart and oracle: Q6's
+    step over the three predicate words of Q6's CUBIT indexes, the grouped
+    step over Q1's (l_returnflag, l_linestatus) code and l_quantity, the
+    partitioned and pipelined joins of l_orderkey against o_orderkey
+    (sum of l_quantity * o_custkey), and the requota on l_orderkey from a
+    quarter of the rows.  There is one card and NCCL puts no two ranks on
+    one device, so this shows the collectives run and agree; it claims no
+    scaling.  -> {step: (ms, single-device ms or None)}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from duckdb_cubit_tpu_torch.bench import (CANONICAL, q6_kernel_inputs,
+                                              q6_variant_filters)
+    from duckdb_cubit_tpu_torch.exec.result import format_decimal
+    from duckdb_cubit_tpu_torch.ops import bitmap as bm
+    from duckdb_cubit_tpu_torch.ops import fused_scan as fs
+    from duckdb_cubit_tpu_torch.ops import join as join_ops
+    from duckdb_cubit_tpu_torch.ops import kernels
+    from duckdb_cubit_tpu_torch.parallel import distributed as D
+    from duckdb_cubit_tpu_torch.parallel import exchange as E
+    from duckdb_cubit_tpu_torch.parallel.mesh import make_mesh, shard_rows
+
+    device = conn.device
+    li, od = conn.catalog.table("lineitem"), conn.catalog.table("orders")
+    cap, n, n_o = li.capacity, li.num_rows, od.num_rows
+    if li.deleted is not None or od.deleted is not None:
+        raise AssertionError("the mesh phase expects no deleted rows")
+    times = {}
+    tmp = tempfile.mkdtemp(prefix="mesh-")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, backend=backend, device=device)
+        print(f"mesh: {mesh.size} rank, backend "
+              f"{dist.get_backend(mesh.group)}, device {mesh.device}")
+
+        def col(table, name, rows):
+            return shard_rows(table.columns[name].data[:rows].to(torch.int64),
+                              mesh)
+
+        # Q6: the three index words, their AND the main path's words
+        words, payloads, packed = q6_kernel_inputs(conn)
+        ranges = [li.indexes[c].query_range(lo, hi)
+                  for c, lo, hi in list(q6_variant_filters())[CANONICAL]]
+        if not all(r.exact for r in ranges):
+            raise AssertionError("Q6's index ranges are not exact")
+        w3 = [shard_rows(r.words, mesh) for r in ranges]
+        if not torch.equal(w3[0] & w3[1] & w3[2], words):
+            raise AssertionError("Q6's three index words do not AND to the "
+                                 "main path's words")
+        eprice, disc = (col(li, c, cap)
+                        for c in ("l_extendedprice", "l_discount"))
+        valid = shard_rows(torch.arange(cap, device=device) < n, mesh)
+        q6 = D.make_q6_step(mesh)
+        hi, lo = q6(*w3, eprice, disc, valid)
+        got = kernels.combine_hi_lo(hi, lo)
+        want_hi, want_lo = kernels.masked_sum_exact(
+            eprice * disc, bm.expand(words, cap) & valid)
+        k1 = int(fs.fused_scan_sum(words, payloads, packed))
+        print(f"Q6 step: {format_decimal(got, 4)} (phase 4: {q6_revenue}); "
+              f"masked_sum_exact ({int(want_hi)}, {int(want_lo)}), step "
+              f"({int(hi)}, {int(lo)}); K1 {k1}")
+        if (format_decimal(got, 4) != q6_revenue or k1 != got
+                or (int(hi), int(lo)) != (int(want_hi), int(want_lo))):
+            raise AssertionError("the Q6 step disagrees")
+        times["q6"] = (median_wall_ms(lambda: q6(*w3, eprice, disc, valid),
+                                      device),
+                       median_wall_ms(lambda: fs.fused_scan_sum(
+                           words, payloads, packed), device))
+
+        # Q1's dense group code over the live rows
+        live = torch.ones(n, dtype=torch.bool, device=device)
+        rf_vals, rf = torch.unique(col(li, "l_returnflag", n),
+                                   return_inverse=True)
+        ls_vals, ls = torch.unique(col(li, "l_linestatus", n),
+                                   return_inverse=True)
+        groups = rf_vals.shape[0] * ls_vals.shape[0]
+        codes = rf * ls_vals.shape[0] + ls
+        qty = col(li, "l_quantity", n)
+        grouped = D.make_grouped_agg_step(mesh, groups)
+        got = grouped(codes, qty, live)
+        want = (*kernels.group_sum_exact(codes, qty, live, groups),
+                kernels.group_count(codes, live, groups))
+        print(f"grouped step over {groups} groups: counts "
+              f"{got[2].tolist()}, sums "
+              f"{[kernels.combine_hi_lo(h, l) for h, l in zip(*got[:2])]}")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("the grouped step disagrees with "
+                                 "group_sum_exact / group_count")
+        times["grouped"] = (
+            median_wall_ms(lambda: grouped(codes, qty, live), device),
+            median_wall_ms(lambda: kernels.group_sum_exact(
+                codes, qty, live, groups), device))
+
+        # the joins: lineitem (probe) against orders (build)
+        bk, bv = col(od, "o_orderkey", n_o), col(od, "o_custkey", n_o)
+        pk, pv = col(li, "l_orderkey", n), qty
+        bvalid = torch.ones(n_o, dtype=torch.bool, device=device)
+        host_li = live_columns(li, ["l_orderkey", "l_quantity"])
+        host_od = live_columns(od, ["o_orderkey", "o_custkey"])
+        row = _row_of(host_od["o_orderkey"], host_li["l_orderkey"])
+        found = row >= 0
+        oracle = int((host_li["l_quantity"][found]
+                      * host_od["o_custkey"][row[found]]).sum())
+        whole = D.make_partitioned_join_step(mesh, n_o, n)
+        padded = -(-n // 4) * 4
+        pad = torch.zeros(padded - n, dtype=torch.int64, device=device)
+        pk4, pv4 = torch.cat([pk, pad]), torch.cat([pv, pad])
+        pvalid4 = torch.arange(padded, device=device) < n
+        pipe = D.make_pipelined_join_step(mesh, n_o, padded // 4, 4)
+        results = {"partitioned join": whole(bk, bv, bvalid, pk, pv, live),
+                   "pipelined join": pipe(bk, bv, bvalid, pk4, pv4, pvalid4)}
+        for name, (total, ovf) in results.items():
+            print(f"{name}: {int(total)} (numpy oracle {oracle}), overflow "
+                  f"{int(ovf)}")
+            if (int(total), int(ovf)) != (oracle, 0):
+                raise AssertionError(f"the {name} disagrees")
+
+        def local_join():
+            bs = join_ops.build(bk, bvalid)
+            return join_ops.probe(bs, pk, live)
+
+        local_ms = median_wall_ms(local_join, device)
+        times["partitioned join"] = (median_wall_ms(
+            lambda: whole(bk, bv, bvalid, pk, pv, live), device), local_ms)
+        times["pipelined join"] = (median_wall_ms(
+            lambda: pipe(bk, bv, bvalid, pk4, pv4, pvalid4), device),
+            local_ms)
+
+        # the requota: a quarter of the rows, doubled twice
+        start = -(-n // 4)
+        ids = torch.arange(n, device=device)
+        k2, v2, (p2,), quota, rounds = E.exchange_with_requota(
+            mesh, pk, live, [ids], quota=start)
+        print(f"requota on l_orderkey: quota {start} -> {quota} in {rounds} "
+              f"rounds, {int(v2.sum())} rows out")
+        if (rounds, quota) != (3, 4 * start):
+            raise AssertionError("the requota took other rounds")
+        if not (torch.equal(torch.sort(k2[v2]).values, torch.sort(pk).values)
+                and torch.equal(pk[p2[v2]], k2[v2])):
+            raise AssertionError("the requota lost or moved rows")
+        times["requota"] = (median_wall_ms(lambda: E.exchange_with_requota(
+            mesh, pk, live, [ids], quota=start), device), None)
+
+        for step, (ms, local) in times.items():
+            beside = "" if local is None else f", single device {local:.3f} ms"
+            print(f"{step} step: median {ms:.3f} ms over {RUNS_MESH} warm "
+                  f"runs{beside}  [{card}]")
+        if device.type == "cuda":
+            kernels_seen, _ = device_kernel_times(
+                lambda: whole(bk, bv, bvalid, pk, pv, live), 1)
+            print("collective kernels in the partitioned join: "
+                  f"{sorted(k for k in kernels_seen if 'nccl' in k.lower())}")
+        flag = torch.ones(8, dtype=torch.bool, device=mesh.device)
+        out = torch.zeros_like(flag)
+        try:
+            dist.all_to_all_single(out, flag, group=mesh.group)
+            verdict = f"accepted ({bool(out.all())})"
+        except (RuntimeError, TypeError, ValueError) as e:
+            verdict = f"refused ({e})"
+        print(f"{backend} all_to_all_single on a bool tensor: {verdict}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return times
+
+
+def _shell_lines(out: str) -> list[str]:
+    lines = []
+    for line in out.splitlines():
+        while line.startswith(("sql> ", "...> ")):
+            line = line[5:]
+        lines.append(line)
+    return lines
+
+
+def shell_on_card(device, card: str):
+    """`python -m duckdb_cubit_tpu_torch.shell --sf 0.01` driven through
+    stdin: its `\\d`, `\\tpch 6` and multi-line SELECT must print the rows
+    `conn.sql` / `tpch_query` give on a card catalog at SF0.01."""
+    from duckdb_cubit_tpu_torch.api import connect
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    stdin = f"\\timing\n\\d\n\\tpch 6\n{SHELL_SELECT}\n\\q\n"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "duckdb_cubit_tpu_torch.shell", "--sf",
+         "0.01", "--device", device.type], input=stdin, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the shell failed: {proc.stderr[-2000:]}")
+    got = _shell_lines(proc.stdout)
+    conn = connect(sf=0.01, device=device)
+
+    def table(rows):
+        return [" | ".join(r) for r in rows] + [f"({len(rows)} rows)"]
+
+    tables = [f"{name:12} {t.num_rows:>12} rows  indexes: "
+              f"{','.join(t.indexes) or '-'}"
+              for name, t in conn.catalog.tables.items()]
+    want = (["timing off"] + tables + table(conn.tpch_query(6).strings())
+            + table(conn.sql(SHELL_SELECT.rstrip(";")).strings()) + [""])
+    for line in got:
+        print("   ", line)
+    if got[2:] != want:
+        raise AssertionError(f"the shell printed {got[2:]}, expected {want}")
+    print(f"shell session: {len(tables)} tables, \\tpch 6 and the SELECT "
+          f"equal conn.sql's rows; {secs:.2f} s with the process start  "
+          f"[{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -1907,6 +2166,7 @@ def main() -> int:
           f"{launches['fused_scan_sum']}")
     if rows != [[expect]]:
         raise AssertionError("Q6 disagrees with the numpy oracle")
+    q6_revenue = rows[0][0]
     known = KNOWN_Q6.get(args.sf)
     if known is not None and expect != known:
         raise AssertionError(f"Q6 {expect} != known answer {known}")
@@ -2087,6 +2347,11 @@ def main() -> int:
     del cpu
     print("-- staged against whole plan, the four queries and the 22 texts")
     staged_against_whole_plan(conn, texts, card)
+    phase(f"mesh: the parallel steps on a one-rank NCCL group at "
+          f"SF{args.sf:g}")
+    mesh_steps(conn, q6_revenue, card)
+    phase("entry point: shell")
+    shell_on_card(device, card)
     # last: it mutates the catalog every earlier phase read
     phase(f"DML, transactions and persistence at SF{args.sf:g}")
     dml = dml_transactions_persistence(conn, card, modes["prepared"],

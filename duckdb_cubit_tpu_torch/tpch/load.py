@@ -190,7 +190,9 @@ def from_reference_catalog(ref_catalog, *, device) -> Catalog:
     storage types, dictionaries, domains, zone maps, NULL masks and
     sortedness; tables their deleted-row masks; indexes keep their words,
     cumulative words, bin counts, epochs and pending updates; primary-key
-    indexes their luts.
+    indexes their luts.  The placement stays "default" whatever the
+    reference's: a mesh catalog's tag ("mesh8:<id>") would name a placement
+    the port's catalog does not have, since every tensor sits on `device`.
     """
     device = torch.device(device)
     catalog = Catalog()
@@ -219,5 +221,4 @@ def from_reference_catalog(ref_catalog, *, device) -> Catalog:
                         for c, pk in rt.pk_indexes.items()}
         catalog.register(t)
     catalog.foreign_keys = dict(ref_catalog.foreign_keys)
-    catalog.placement = ref_catalog.placement
     return catalog

@@ -5,8 +5,9 @@ runs statements (CREATE TABLE, INSERT, CREATE INDEX, SET), the TPC-H SQL
 text of Q21, one sqllogic file through the port's runner, a window query, a
 band join, an ASOF join, DML in a rolled-back transaction, a checkpoint and
 `open_database`; then a verified query (leg 4 included), EXPLAIN ANALYZE, a
-prepared query and a query forced out of core; and must never have loaded
-jax or the reference package.
+prepared query and a query forced out of core; then Q6's step on a
+one-rank gloo mesh (the mesh layer) and the shell's module; and must never
+have loaded jax or the reference package.
 """
 
 import os
@@ -67,9 +68,24 @@ conn.sql("SET force_external = true")
 assert conn.sql("SELECT l_returnflag, count(*) AS c FROM lineitem GROUP BY "
                 "l_returnflag ORDER BY l_returnflag").strings()[0][0] == "A"
 assert conn.executor.external_passes >= 4
+import torch
+import torch.distributed as dist
+from duckdb_cubit_tpu_torch import shell  # noqa: F401
+from duckdb_cubit_tpu_torch.parallel import distributed, exchange  # noqa: F401
+from duckdb_cubit_tpu_torch.parallel.mesh import make_mesh
+dist.init_process_group("gloo", init_method="file://" + path + "/rendezvous",
+                        rank=0, world_size=1)
+mesh = make_mesh(1, backend="gloo", device="cpu")
+words = torch.tensor([0b1011, -1], dtype=torch.int32)
+hi, lo = distributed.make_q6_step(mesh)(
+    words, words, words, torch.arange(64), torch.full((64,), 2),
+    torch.ones(64, dtype=torch.bool))
+assert (int(hi), int(lo)) == (0, 2 * (0 + 1 + 3 + sum(range(32, 64))))
+dist.destroy_process_group()
 for m in ("sql.statements", "storage.dml", "tpch.sql_queries",
           "testing.sqllogic", "tpch.answers", "ops.window",
-          "storage.persist", "exec.pyverify", "exec.profiler"):
+          "storage.persist", "exec.pyverify", "exec.profiler", "shell",
+          "parallel.mesh", "parallel.exchange", "parallel.distributed"):
     assert "duckdb_cubit_tpu_torch." + m in sys.modules, m
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "duckdb_cubit_tpu"))

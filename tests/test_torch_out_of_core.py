@@ -193,3 +193,21 @@ def test_out_of_core_join_rooted_stage():
                                     "WHERE f.k = d.k")
     assert passes == 4, "the join stage did not chunk"
     assert rows == [[str(int((fv * dw[fk]).sum())), str(n)]]
+
+
+def test_carried_mesh_catalog_runs_out_of_core(sf001):
+    """A catalog carried from the reference's 8-device mesh catalog is
+    placed "default" (its tensors sit on one device), so forced out-of-core
+    execution still chunks it, with the reference's single-device rows."""
+    from duckdb_cubit_tpu.parallel.mesh import make_mesh
+    from duckdb_cubit_tpu_torch.tpch.load import from_reference_catalog
+
+    ref_mesh = ref_connect(0.01, mesh=make_mesh(8))
+    assert ref_mesh.catalog.placement.startswith("mesh8:")
+    cat = from_reference_catalog(ref_mesh.catalog, device="cpu")
+    assert cat.placement == "default"
+    conn = Connection(cat, device="cpu")
+    conn.config.force_external = True
+    got, passes, _ = _passes(conn, SQL[1])
+    assert passes > 0
+    assert _rows_equal(got, ref_rows(sf001[0], SQL[1]))
