@@ -125,11 +125,23 @@ raises on failure (non-zero exit):
      overflow 0) and the requota on l_orderkey from a quarter of the rows
      (3 rounds, 4x the quota, every key kept).  Each step's median warm
      time beside its single-device counterpart's;
- 13. entry point: shell: `python -m duckdb_cubit_tpu_torch.shell --sf
+ 13. engine on a mesh: `connect(sf, device="cuda", mesh=make_mesh(1))` on
+     a one-rank NCCL group, the catalog loaded on the host and sharded
+     (every table a row block on the card): Q6, Q1, Q12, Q3 and the 22 SQL
+     texts, each with the launch counts set to 0 just before it and read
+     just after (K2 must launch, K1 must not: it declines on a mesh, as
+     the reference's does), equal to the single-device connection's rows
+     with the same retries; their medians, mesh and single device
+     interleaved; the radix-exchange join forced on (`SET
+     exchange_min_build_rows = 1`): lineitem x orders against the numpy
+     oracle 1149209522195200, `nccl:all_to_all` in its profile, SQL q3 and
+     q7 equal to their single-device rows; the skew requota on 2M probe
+     rows, half on one key, retrying to the single device's rows;
+ 14. entry point: shell: `python -m duckdb_cubit_tpu_torch.shell --sf
      0.01` driven through stdin (`\\timing`, `\\d`, `\\tpch 6`, a
      multi-line SELECT, `\\q`), its lines equal to `conn.sql` /
      `tpch_query` on a card catalog at SF0.01;
- 14. DML, transactions and persistence, last because it mutates the
+ 15. DML, transactions and persistence, last because it mutates the
      catalog: BEGIN; UPDATE of l_discount over about 1% of lineitem (Q6
      equal to its numpy oracle over the mutated columns, K1 launches once);
      UPDATE of o_shippriority (a column Q3's K2 pass fetches through a
@@ -145,8 +157,9 @@ raises on failure (non-zero exit):
 
 The kernel table is one JSON line (each kernel's `launches` sums the main
 path's runs: the four SQL queries, the 22 plans, the 22 SQL texts, the
-window / join queries and the DML phase's queries, split in
-`launches_by_path` as "sql", "tpch_plans", "tpch_sql", "windows" and
+window / join queries, the executor modes, the engine on a mesh and the
+DML phase's queries, split in `launches_by_path` as "sql", "tpch_plans",
+"tpch_sql", "windows", "verification", "external", "mesh_engine" and
 "dml"), then the card's name and power limit; the last line is {"ok": true,
 "device": {...}}.
 """
@@ -2060,6 +2073,233 @@ def mesh_steps(conn, q6_revenue: str, card: str,
     return times
 
 
+# the exchange's oracle query (the "mesh" phase's join: 1149209522195200 at
+# SF1, where l_quantity is stored in hundredths)
+EXCHANGE_SUM = ("SELECT sum(l_quantity * o_custkey) AS s FROM lineitem, "
+                "orders WHERE l_orderkey = o_orderkey")
+SKEW_SUM = ("SELECT sum(pv * bv) AS s, count(*) AS c FROM probe, build "
+            "WHERE probe.k = build.k")
+SKEW_ROWS = 2_000_000
+
+
+def profiled_names(fn) -> set:
+    """Every event name torch.profiler records over one call of `fn`, host
+    ops and device kernels alike."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def skew_tables() -> dict:
+    """A probe side of SKEW_ROWS rows, half of its keys on one value, and a
+    build side of 2,000 distinct keys."""
+    rng = np.random.default_rng(1)
+    keys = rng.integers(0, 2000, SKEW_ROWS)
+    keys[: SKEW_ROWS // 2] = 7
+    return {"probe": {"k": keys, "pv": rng.integers(0, 100, SKEW_ROWS)},
+            "build": {"k": np.arange(2000, dtype=np.int64),
+                      "bv": rng.integers(0, 100, 2000)}}
+
+
+def mesh_engine(conn, texts: dict, sf: float, card: str,
+                backend: str = "nccl") -> dict:
+    """The engine sharded over a one-rank NCCL mesh on the card
+    (`connect(sf, device="cuda", mesh=make_mesh(1))`, from a host load):
+    Q6, Q1, Q12, Q3 and the 22 SQL texts, each counted (K2 must launch, K1
+    must not: it declines on a mesh, as the reference's does) and equal to
+    the single-device connection's rows with the same retries; then the
+    radix-exchange join forced on (EXCHANGE_SUM against its numpy oracle,
+    SQL q3 and q7 against their single-device rows, `nccl:all_to_all` in
+    the profile), the skew requota on a registered pair of SKEW_ROWS probe
+    rows, and the medians of the four queries and the 22 texts, mesh and
+    single device interleaved.  One rank claims no scaling: it shows the
+    mesh path's collectives, exchange and kernel launches on the card.
+    -> {"launches": {kernel: launches on the counted runs}}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from duckdb_cubit_tpu_torch.api import Connection
+    from duckdb_cubit_tpu_torch.api import connect as connect_to
+    from duckdb_cubit_tpu_torch.exec.result import format_decimal, to_strings
+    from duckdb_cubit_tpu_torch.parallel.mesh import make_mesh
+    from duckdb_cubit_tpu_torch.plan.physical import HashJoin
+    from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
+    from duckdb_cubit_tpu_torch.types import TypeId
+
+    device = conn.device
+    tmp = tempfile.mkdtemp(prefix="mesh-engine-")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, backend=backend, device=device)
+        t0 = time.perf_counter()
+        mconn = connect_to(sf, device=device, mesh=mesh)
+        print(f"connect(sf={sf:g}, device={str(device)!r}, "
+              f"mesh=make_mesh(1)) in "
+              f"{time.perf_counter() - t0:.2f} s: placement "
+              f"{mconn.catalog.placement}, mesh device {mesh.device}, "
+              f"backend {dist.get_backend(mesh.group)}")
+        for t in mconn.catalog.tables.values():
+            tensors = [c.data for c in t.columns.values()]
+            tensors += [ix.words for ix in t.indexes.values()]
+            tensors += [ix.cum_words for ix in t.indexes.values()]
+            tensors += [pk.lut for pk in t.pk_indexes.values()]
+            where = sorted({str(x.device) for x in tensors if x is not None})
+            print(f"  {t.name}: {'sharded' if t.sharded else 'replicated'}, "
+                  f"block rows [{t.row_offset}, "
+                  f"{t.row_offset + t.capacity}) of {t.global_capacity}, "
+                  f"{t.num_rows} live; tensors on {where}")
+            if not t.sharded or where != [str(mesh.device)]:
+                raise AssertionError(f"{t.name} is not a row block on "
+                                     f"{mesh.device}")
+
+        def single_rows(sql):
+            rel = conn.sql(sql).relation
+            return to_strings(rel), [c.dtype.id == TypeId.DOUBLE
+                                     for c in rel.columns.values()]
+
+        def compare(name, sql, want, doubles, single_retries):
+            before = mconn.executor.retry_count
+            rows, counts = counted(lambda: mconn.sql(sql).strings())
+            retries = mconn.executor.retry_count - before
+            if not cells_agree(rows, want, doubles):
+                raise AssertionError(f"{name} on the mesh disagrees with the "
+                                     f"single device: {rows[:3]} vs "
+                                     f"{want[:3]}")
+            if retries != single_retries:
+                raise AssertionError(f"{name} retried {retries} times on the "
+                                     f"mesh, {single_retries} on one device")
+            print(f"{name}: {len(rows)} rows equal to the single device's; "
+                  f"K1 {counts['fused_scan_sum']}, K2 "
+                  f"{counts['monotone_gather']}, retries {retries}")
+            return counts
+
+        launches = {"fused_scan_sum": 0, "monotone_gather": 0}
+        named = [("Q6", Q6), ("Q1", Q1), ("Q12", Q12), ("Q3", Q3)]
+        named += [(f"SQL q{n}", SQL[n]) for n in sorted(SQL)]
+        for name, sql in named:
+            before = conn.executor.retry_count
+            want, doubles = single_rows(sql)
+            counts = compare(name, sql, want, doubles,
+                             conn.executor.retry_count - before)
+            for k in launches:
+                launches[k] += counts[k]
+        if launches["fused_scan_sum"] != 0 or launches["monotone_gather"] < 1:
+            raise AssertionError(f"mesh launches {launches}: K1 must not "
+                                 f"launch, K2 must")
+        print(f"the four queries and 22 texts on the mesh equal the single "
+              f"device; launches {launches}")
+
+        print("-- medians, mesh and single device interleaved "
+              f"({RUNS_PLANS} warm runs each)")
+        sums = {"mesh": 0.0, "single": 0.0}
+        for name, sql in named:
+            times = {"mesh": [], "single": []}
+            runs = (("mesh", mconn), ("single", conn))
+            for c in (mconn, conn):
+                c.sql(sql).strings()
+            for _ in range(RUNS_PLANS):
+                for side, c in runs:
+                    t1 = time.perf_counter()
+                    c.sql(sql).strings()
+                    times[side].append((time.perf_counter() - t1) * 1e3)
+            med = {side: statistics.median(v) for side, v in times.items()}
+            if name.startswith("SQL"):
+                for side in sums:
+                    sums[side] += med[side]
+            else:
+                print(f"{name}: mesh {med['mesh']:.3f} ms, single device "
+                      f"{med['single']:.3f} ms  [{card}]")
+        print(f"22 texts, sum of medians: mesh {sums['mesh']:.3f} ms, single "
+              f"device {sums['single']:.3f} ms  [{card}]")
+
+        # the radix exchange forced on every inner / left equi join
+        mconn.config.explicit_exchange = True
+        mconn.config.exchange_min_build_rows = 1
+        li, od = conn.catalog.table("lineitem"), conn.catalog.table("orders")
+        host_li = live_columns(li, ["l_orderkey", "l_quantity"])
+        host_od = live_columns(od, ["o_orderkey", "o_custkey"])
+        row = _row_of(host_od["o_orderkey"], host_li["l_orderkey"])
+        found = row >= 0
+        oracle = int((host_li["l_quantity"][found]
+                      * host_od["o_custkey"][row[found]]).sum())
+        res = mconn.sql(EXCHANGE_SUM)
+        dt = next(iter(res.relation.columns.values())).dtype
+        want = format_decimal(oracle, dt.scale) \
+            if dt.id == TypeId.DECIMAL else str(oracle)
+        got = res.strings()
+        used = [j for j in mconn.executor.plan.walk()
+                if isinstance(j, HashJoin)
+                and getattr(j, "_exchange_used", False)]
+        print(f"exchange join: {got} (numpy oracle {oracle} in storage "
+              f"units, {want}); exchange used by {len(used)} join(s), "
+              f"quotas {[(j._exq_probe, j._exq_build) for j in used]}")
+        if got != [[want]] or not used:
+            raise AssertionError("the exchange join disagrees or was not "
+                                 "taken")
+        if sf == 1.0 and oracle != 1149209522195200:
+            raise AssertionError("the exchange oracle moved")
+        names = profiled_names(lambda: mconn.sql(EXCHANGE_SUM).strings())
+        nccl = sorted(n for n in names if "nccl" in n.lower())
+        print(f"profiled exchange join: {nccl}")
+        if not any("nccl:all_to_all" in n for n in nccl):
+            raise AssertionError("no nccl:all_to_all in the exchange join")
+        for q in (3, 7):
+            want_rows, doubles = texts["rows"][q]
+            got = mconn.sql(SQL[q]).strings()
+            used = [j for j in mconn.executor.plan.walk()
+                    if isinstance(j, HashJoin)
+                    and getattr(j, "_exchange_used", False)]
+            print(f"SQL q{q} with the exchange: {len(got)} rows, "
+                  f"{len(used)} exchange join(s)")
+            if not used or not cells_agree(got, want_rows, doubles):
+                raise AssertionError(f"SQL q{q} with the exchange disagrees "
+                                     f"or took none")
+
+        # the skew requota: one rank owns every key, so a quota below the
+        # fill (slack 0.5 of the block) must overflow and double
+        tables = skew_tables()
+        single = Connection(device=device)
+        skewed = Connection(device=device, mesh=mesh)
+        skewed.config.exchange_min_build_rows = 1
+        skewed.config.exchange_quota_slack = 0.5
+        for c in (single, skewed):
+            for name, cols in tables.items():
+                c.register_numpy(name, cols)
+        want = single.sql(SKEW_SUM).strings()
+        got = skewed.sql(SKEW_SUM).strings()
+        j = next(j for j in skewed.executor.plan.walk()
+                 if isinstance(j, HashJoin))
+        print(f"skew requota ({SKEW_ROWS} probe rows, half on one key, "
+              f"slack 0.5): {got} (single device {want}), retries "
+              f"{skewed.executor.retry_count}, quotas probe "
+              f"{j._exq_probe} / build {j._exq_build}")
+        if got != want or skewed.executor.retry_count < 1 or \
+                not getattr(j, "_exchange_used", False):
+            raise AssertionError("the skew requota did not retry to the "
+                                 "single device's rows")
+        times = {"mesh": [], "single": []}
+        for _ in range(RUNS_PLANS):
+            for side, c in (("mesh", mconn), ("single", conn)):
+                t1 = time.perf_counter()
+                c.sql(EXCHANGE_SUM).strings()
+                times[side].append((time.perf_counter() - t1) * 1e3)
+        print(f"exchange join median {statistics.median(times['mesh']):.3f} "
+              f"ms against the single device's PK join "
+              f"{statistics.median(times['single']):.3f} ms  [{card}]")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches}
+
+
 def _shell_lines(out: str) -> list[str]:
     lines = []
     for line in out.splitlines():
@@ -2350,6 +2590,8 @@ def main() -> int:
     phase(f"mesh: the parallel steps on a one-rank NCCL group at "
           f"SF{args.sf:g}")
     mesh_steps(conn, q6_revenue, card)
+    phase(f"engine on a mesh at SF{args.sf:g}")
+    engine = mesh_engine(conn, texts, args.sf, card)
     phase("entry point: shell")
     shell_on_card(device, card)
     # last: it mutates the catalog every earlier phase read
@@ -2363,6 +2605,7 @@ def main() -> int:
                       "verification": modes["launches"]["verification"][name]
                       + dml["prepared_launches"][name],
                       "external": modes["launches"]["external"][name],
+                      "mesh_engine": engine["launches"][name],
                       "dml": dml["launches"][name]}
                for name in plans["launches"]}
     for name, paths in by_path.items():

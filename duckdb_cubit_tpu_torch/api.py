@@ -20,7 +20,15 @@ and `checkpoint()` writes the catalog and truncates the log.
 `execute()` re-resolves when a table changes (`exec/executor.PreparedQuery`).
 `sql(q, profile=True)` and `execute_plan(plan, profile=True)` time every
 operator (`conn.executor.profiler`).  `SET query_timeout_s = x` abandons a
-SELECT that takes longer with `QueryTimeoutError`.  Meshes come later.
+SELECT that takes longer with `QueryTimeoutError`.
+
+On a mesh (`connect(sf, device=..., mesh=make_mesh(n))`, called on every
+rank of a `torch.distributed` world, e.g. inside `parallel/spawn.run`) the
+catalog is sharded (`parallel/shard.py`): each rank holds its row blocks on
+the mesh's device, runs the same plans, and gets the same rows back.  The
+TPC-H catalog is loaded on the host and each rank copies its blocks to its
+card.  DML, transactions, checkpoints, `attach` and `query_timeout_s` raise
+`NotImplementedError` on a mesh (ROADMAP item 14c).
 """
 
 from __future__ import annotations
@@ -112,13 +120,23 @@ class _QueryDeadline:
         return False
 
 
+def mesh_unsupported(what: str):
+    """Raise for a feature that has no mesh form yet."""
+    raise NotImplementedError(
+        f"{what} on a mesh is not supported yet (ROADMAP item 14c)")
+
+
 class Connection:
     def __init__(self, catalog: Catalog | None = None, config=None, *,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         from .config import EngineConfig
 
         self.device = torch.device(device)
+        self.mesh = mesh
         self.catalog = catalog if catalog is not None else Catalog()
+        if mesh is not None:
+            self.device = self._mesh_device(mesh)
+            self.catalog = self._placed(self.catalog)
         self._check_device(self.catalog)
         self.catalog.device = self.device
         self.config = config if config is not None else EngineConfig()
@@ -130,12 +148,40 @@ class Connection:
         self.db_path: str | None = None
         self._wal_replaying = False
 
+    def _mesh_device(self, mesh) -> torch.device:
+        """The mesh's device, which must be the one the caller asked for."""
+        want = self.device
+        if mesh.device.type != want.type or (
+                want.index is not None and mesh.device.index != want.index):
+            raise ValueError(f"the mesh is on {mesh.device}, the connection "
+                             f"on {want}")
+        return mesh.device
+
+    def _placed(self, catalog: Catalog) -> Catalog:
+        """`catalog` on the mesh: its tables sharded, or, when it has none
+        yet, marked so that the tables registered later are."""
+        from .parallel import shard
+
+        if catalog.tables:
+            return shard.shard_catalog(catalog, self.mesh)
+        return shard.place_catalog(catalog, self.mesh)
+
+    def register_table(self, table):
+        """Add a table to the catalog (this rank's copy of it on a mesh)."""
+        if self.mesh is not None:
+            from .parallel.shard import shard_table
+
+            table = shard_table(table, self.mesh)
+        self.catalog.register(table)
+
     def attach(self, path: str):
         """Make the connection durable under `path`: later DDL / DML go to
         its write-ahead log.  ":memory:" keeps it in memory (no directory is
         made; the reference creates one named ":memory:")."""
         import os
 
+        if self.mesh is not None:
+            mesh_unsupported("attach")
         if path == ":memory:":
             self.db_path = None
             return self
@@ -147,6 +193,8 @@ class Connection:
         """Write the catalog to disk and truncate the write-ahead log."""
         from .storage.persist import checkpoint
 
+        if self.mesh is not None:
+            mesh_unsupported("checkpoint")
         target = path or self.db_path
         if target is None:
             raise ValueError("no database path: attach(path) first")
@@ -161,13 +209,21 @@ class Connection:
 
     # -------------------------------------------------------------- data in
     def register_numpy(self, name: str, columns: dict, schema=None):
-        self.catalog.register(from_numpy(name, columns, schema,
-                                         device=self.device))
+        # on a mesh the table is built on the host and each rank copies its
+        # block to its device
+        self.register_table(from_numpy(
+            name, columns, schema,
+            device="cpu" if self.mesh is not None else self.device))
 
     def load_tpch(self, sf: float = 0.01):
         from .tpch import load
 
-        self.catalog = load.load_catalog(sf, device=self.device)
+        if self.mesh is None:
+            self.catalog = load.load_catalog(sf, device=self.device)
+        else:
+            # a host load, sharded: no rank holds the whole catalog on its
+            # device
+            self.catalog = self._placed(load.load_catalog(sf, device="cpu"))
         self.catalog.device = self.device
         self.executor = Executor(self.catalog, self.config)
         self.binder = Binder(self.catalog, self.executor)
@@ -183,6 +239,10 @@ class Connection:
             # the deadline covers a SELECT only: DML and transactions are
             # never cut midway
             timeout = self.config.query_timeout_s
+            if timeout > 0 and self.mesh is not None:
+                # a SIGALRM on one rank, inside a collective, would leave
+                # the others waiting
+                mesh_unsupported("query_timeout_s")
             with _QueryDeadline(timeout):
                 rel = self.executor.execute(self.binder.bind(stmt),
                                             profile=profile)
@@ -207,6 +267,8 @@ class Connection:
 
     # ------------------------------------------------------- transactions
     def begin(self):
+        if self.mesh is not None:
+            mesh_unsupported("a transaction")
         if self._txn_snapshot is not None:
             raise RuntimeError("transaction already active")
         self._txn_snapshot = self.catalog.snapshot()
@@ -277,11 +339,13 @@ class Connection:
         return "\n".join(lines)
 
 
-def connect(sf: float | None = None, *, device="cuda") -> Connection:
+def connect(sf: float | None = None, *, device="cuda",
+            mesh=None) -> Connection:
     """Open a connection whose tensors live on `device` (the card unless the
     caller asks for "cpu"); with `sf`, load the TPC-H catalog at that scale
-    factor."""
-    conn = Connection(device=device)
+    factor.  With `mesh` (`parallel/mesh.make_mesh`, on `device`), every
+    rank that calls it holds its row blocks of the catalog."""
+    conn = Connection(device=device, mesh=mesh)
     if sf is not None:
         conn.load_tpch(sf)
     return conn

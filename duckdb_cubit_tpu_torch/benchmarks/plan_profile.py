@@ -75,8 +75,8 @@ def ranges():
         P.PhysicalOperator.execute = _execute_in_range
         opt.optimize = _ranged(opt.optimize, "phase:optimize")
         X.Executor._prepare = _ranged(X.Executor._prepare, "phase:prepare")
-        X.Executor._failed_checks = staticmethod(_ranged(
-            X.Executor._failed_checks, "phase:checks"))
+        X.Executor._failed_checks = _ranged(X.Executor._failed_checks,
+                                            "phase:checks")
         for n in EXPRESSIONS:
             cls = getattr(E, n)
             cls.eval = _ranged(cls.eval, f"expr:{n}")

@@ -30,7 +30,15 @@ plan, or one per stage) the port runs the same operators eagerly.
   estimated working set): an aggregate stage's driving scan is split into
   row ranges, each pass yields partial aggregates and a merge pass
   re-aggregates them (`_run_stage_chunked`); zone maps skip ranges no row
-  of which can pass the scan's filters.
+  of which can pass the scan's filters.  Not on a mesh.
+
+On a catalog sharded over a mesh (`parallel/shard.py`) every rank runs the
+same plan and every host read of sharded data is a collective, so all ranks
+take the same branch: the deferred checks are ANDed over the mesh before
+their one read, a stage boundary's compaction count is the largest block's
+(every rank picks the same bucket, blocks stay equal in size), and a
+sharded root is gathered, so `execute` returns the same relation on every
+rank.  A radix-exchange join's bucket overflow (`exq`) doubles its quotas.
 """
 
 from __future__ import annotations
@@ -232,6 +240,20 @@ class Executor:
             return self._execute_whole(plan, profiler)
         return self._execute_staged(plan)
 
+    @property
+    def mesh(self):
+        return getattr(self.catalog, "mesh", None)
+
+    def _replicated(self, rel: Relation) -> Relation:
+        """The result whole on every rank (a sharded root is gathered)."""
+        if not rel.sharded:
+            return rel
+        from ..parallel.shard import gather_relation
+
+        out = gather_relation(rel, self.mesh)
+        out.checks = []
+        return out
+
     def _staged(self) -> bool:
         return self.config is None or self.config.staged_execution
 
@@ -297,7 +319,7 @@ class Executor:
             failed = self._failed_checks(rel.checks)
             if not failed:
                 rel.checks = []
-                return rel
+                return self._replicated(rel)
             if not self._handle_failed_checks(failed, list(plan.walk())):
                 raise RuntimeError(f"runtime check failed: {failed}")
             self.retry_count += 1
@@ -305,12 +327,18 @@ class Executor:
             self._prepare(plan)
         raise RuntimeError(f"retry limit exceeded: {failed}")
 
-    @staticmethod
-    def _failed_checks(checks) -> list[str]:
-        """Names of the checks that failed (one device -> host read)."""
+    def _failed_checks(self, checks) -> list[str]:
+        """Names of the checks that failed (one device -> host read; on a
+        mesh the flags are ANDed over the ranks first, so every rank retries
+        the same operators)."""
         if not checks:
             return []
-        flags = torch.stack([ok for _, ok in checks]).tolist()
+        flags = torch.stack([ok for _, ok in checks])
+        if self.mesh is not None:
+            from ..parallel.shard import all_ok
+
+            flags = all_ok(flags, self.mesh)
+        flags = flags.tolist()
         return [name for (name, _), ok in zip(checks, flags) if not ok]
 
     # the expansion regrow: doubled, at least MIN_CAP, at most MAX_CAP
@@ -344,6 +372,15 @@ class Executor:
                 if new_cap > Executor.MAX_CAP:
                     return False
                 ops[tag]._cap_override = new_cap
+            elif kind == "exq":
+                # a radix-exchange bucket overflowed: double the
+                # per-destination quotas of both sides
+                quotas = [a for a in ("_exq_build", "_exq_probe")
+                          if getattr(ops[tag], a, None)]
+                if not quotas:
+                    return False
+                for a in quotas:
+                    setattr(ops[tag], a, getattr(ops[tag], a) * 2)
             else:
                 return False
         return True
@@ -423,12 +460,18 @@ class Executor:
             if self.config is not None else 0
         if limit <= 0 or not PV.supports(raw_plan):
             return False
-        for op in raw_plan.walk():
-            if isinstance(op, TableScan):
-                if self.catalog.table(op.table_name).num_rows > limit:
-                    return False
+        scans = [op.table_name for op in raw_plan.walk()
+                 if isinstance(op, TableScan)]
+        if any(self.catalog.table(t).num_rows > limit for t in scans):
+            return False
+        catalog = self.catalog
+        if self.mesh is not None:
+            # the tables whole on the host, gathered from their blocks
+            from ..parallel.shard import host_catalog
+
+            catalog = host_catalog(self.catalog, scans)
         try:
-            rows = PV.run(raw_plan, self.catalog)
+            rows = PV.run(raw_plan, catalog)
         except PV.Unsupported:
             return False
         names = list(result.columns.keys())
@@ -446,7 +489,7 @@ class Executor:
         self._prepare(plan)
         rel = self._run_stage(plan, keep_aligned=False)
         rel.checks = []
-        return rel
+        return self._replicated(rel)
 
     def _needs_alignment(self, parent, i) -> bool:
         """Whether child i's output rows must keep their row space:
@@ -663,11 +706,17 @@ class Executor:
         """Read the true cardinality (one device -> host count) and gather
         the live rows into a power-of-two bucket, in ascending row order, so
         a sorted column stays sorted (`monotone`, which the monotone gather
-        kernel needs, survives the boundary)."""
+        kernel needs, survives the boundary).  Of a row block, the count is
+        the largest block's (one MAX over the mesh), so every rank picks the
+        same bucket."""
         from ..ops import kernels
 
-        count = int(rel.mask.sum())
-        cap = bucket_count(count)
+        count = rel.mask.sum()
+        if rel.sharded:
+            from ..parallel.shard import all_reduce
+
+            count = all_reduce(count, self.mesh, "max")
+        cap = bucket_count(int(count))
         if cap >= rel.capacity:
             return rel
         self.compacted_boundaries += 1
@@ -680,7 +729,7 @@ class Executor:
                              None if c.valid is None else c.valid[safe],
                              monotone=c.monotone)
                 for n, c in rel.columns.items()}
-        return Relation(cols, valid, cap)
+        return Relation(cols, valid, cap, rel.sharded)
 
     # ------------------------------------------- out-of-core (multi-pass)
     def _chunk_plan(self, root, bindex):
@@ -932,6 +981,7 @@ class PreparedQuery:
         pinned = Catalog()
         pinned.tables, pinned.foreign_keys = live.snapshot()
         pinned.placement, pinned.device = live.placement, live.device
+        pinned.mesh = live.mesh
         return Executor(pinned, self.executor.config)
 
     def run_pinned(self) -> Relation:

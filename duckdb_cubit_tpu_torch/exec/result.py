@@ -49,7 +49,13 @@ def verify_checks(rel: Relation):
 
 
 def materialize(rel: Relation, columns: list[str] | None = None):
-    """-> (column_names, list of row tuples of python values, metas)."""
+    """-> (column_names, list of row tuples of python values, metas).  A
+    row block of a relation on a mesh is refused: it is not the answer
+    (`Executor.execute` gathers a sharded root)."""
+    if rel.sharded:
+        raise ValueError("a sharded relation (one rank's row block) cannot "
+                         "be rendered; gather it first "
+                         "(parallel/shard.gather_relation)")
     verify_checks(rel)
     names = columns or list(rel.columns.keys())
     mask = rel.mask.cpu().numpy()

@@ -12,6 +12,13 @@ Binning:
  - numeric/date columns: explicit sorted bin edges; a range predicate whose
    endpoints land on edges is answered exactly, otherwise the two boundary
    bins are refined against the base column (`refine` path).
+
+On a mesh (`parallel/shard.shard_index`) an index holds its table's row
+block: `words` / `cum_words` keep the block's word columns, and `n_words`
+and `capacity` are the block's, so every `query_*` returns the block's
+bits.  The host bin counts stay global: `count_eq`, `count_isin` and
+`count_range`, which plans read, give the whole table's counts on every
+rank, never a count of the local words.
 """
 
 from __future__ import annotations

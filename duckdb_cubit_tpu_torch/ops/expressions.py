@@ -52,6 +52,9 @@ class EvalContext:
         self.meta = meta
         # per-column NULL validity (None = all valid)
         self.valids = valids or {}
+        # the arrays are one rank's row block of a relation on a mesh: a
+        # dictionary built from the values seen would differ between ranks
+        self.sharded = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -736,6 +739,11 @@ class Concat(Expr):
         ld, lc = self._as_literal_or_col(lt)
         rd, rc = self._as_literal_or_col(rt)
         if len(ld) * len(rd) > self.MAX_DICT:
+            if getattr(ctx, "sharded", False):
+                raise NotImplementedError(
+                    "concat past its dictionary budget builds its dictionary "
+                    "from the rows it sees, which differ between the ranks "
+                    "of a mesh")
             if lc is None or rc is None:
                 raise ExpressionError(
                     f"concat dictionary would have {len(ld) * len(rd)} "

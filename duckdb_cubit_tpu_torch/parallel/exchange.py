@@ -98,19 +98,34 @@ def histogram_quota(mesh: Mesh, keys, valid, n_dest: int,
     return -(-q // 8) * 8
 
 
+# element types both gloo and NCCL reduce and move natively; any other
+# (bool, int16) travels as its bytes
+_WIRE_TYPES = (torch.int8, torch.uint8, torch.int32, torch.int64,
+               torch.float32, torch.float64)
+
+
+def wire(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous 1-D tensor as the collectives can move it: itself, or
+    its bytes (rows stay whole per rank, as each row is a fixed number of
+    bytes)."""
+    x = x.contiguous()
+    return x if x.dtype in _WIRE_TYPES else x.view(torch.uint8)
+
+
+def unwire(buf: torch.Tensor, dtype) -> torch.Tensor:
+    return buf if buf.dtype == dtype else buf.view(dtype)
+
+
 def all_to_all(buckets: torch.Tensor, mesh: Mesh, async_op: bool = False):
     """Send row d of `buckets` to rank d and receive one row from each rank,
-    as one flat buffer (source-major).  A bool tensor travels as its bytes.
-    -> the buffer, or (buffer, work, send buffer) with `async_op`: the send
-    buffer must stay alive until `work.wait()`."""
-    send = buckets.reshape(-1)
-    if send.dtype == torch.bool:
-        send = send.view(torch.uint8)
+    as one flat buffer (source-major).  A bool or int16 tensor travels as
+    its bytes.  -> the buffer, or (buffer, work, send buffer) with
+    `async_op`: the send buffer must stay alive until `work.wait()`."""
+    send = wire(buckets.reshape(-1))
     out = torch.empty_like(send)
     work = dist.all_to_all_single(out, send, group=mesh.group,
                                   async_op=async_op)
-    if buckets.dtype == torch.bool:
-        out = out.view(torch.bool)
+    out = unwire(out, buckets.dtype)
     return (out, work, send) if async_op else out
 
 

@@ -17,6 +17,15 @@ the operators the binder emits for subqueries and sources: MarkJoin (EXISTS
 SingleRow (no FROM), RangeSource (range() / generate_series()) and
 Materialized.  A table's deleted rows (`Table.deleted`) drop out of every
 scan through `Table.row_mask`.
+
+On a catalog sharded over a mesh (`parallel/shard.py`, whose docstring sets
+out the execution model) a relation is a row block (`Relation.sharded`) or
+replicated.  TableScan, Filter, Project, BroadcastScalar and a HashJoin's
+probe side keep a block where it is; the HashJoin gathers its build side
+(a broadcast join) unless the radix exchange takes it
+(`parallel/exchange_join.py`); GroupAggregate reduces per-block partials
+where its group slots are the same on every rank; every other operator
+gathers its inputs first (`PhysicalOperator._inputs`).
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from ..ops import kernels
 from ..ops import probe as PPK
 from ..ops.expressions import (Arith, Col, ColMeta, EvalContext, Expr,
                                Typed, _as_double, _rescale, _wide, as_mask)
+from ..parallel import exchange_join as XJ
+from ..parallel import shard as SH
 from ..storage.table import Table, pad_count
 from ..types import BOOL, DOUBLE, INT64, DataType, TypeId
 
@@ -54,27 +65,32 @@ class RelColumn:
 
 @dataclasses.dataclass
 class Relation:
-    """A batch of named columns + validity mask (the inter-operator format)."""
+    """A batch of named columns + validity mask (the inter-operator format).
+    `sharded`: this rank's row block of a relation over a mesh (the global
+    relation is the blocks in rank order); otherwise the whole relation."""
     columns: dict[str, RelColumn]
     mask: torch.Tensor
     capacity: int
+    sharded: bool = False
 
     def eval_ctx(self) -> EvalContext:
         arrays = {n: c.array for n, c in self.columns.items()}
         meta = {n: ColMeta(c.dtype, c.dictionary) for n, c in self.columns.items()}
         valids = {n: c.valid for n, c in self.columns.items()
                   if c.valid is not None}
-        return EvalContext(arrays, meta, valids)
+        ctx = EvalContext(arrays, meta, valids)
+        ctx.sharded = self.sharded
+        return ctx
 
     def count(self) -> int:
-        """Live rows (a device -> host sync)."""
+        """Live rows (a device -> host sync; of a block, the block's)."""
         return int(self.mask.sum())
 
     def evaluate(self, expr: Expr) -> Typed:
         return expr.eval(self.eval_ctx())
 
     def with_mask(self, mask) -> "Relation":
-        return Relation(self.columns, mask, self.capacity)
+        return Relation(self.columns, mask, self.capacity, self.sharded)
 
     def gather(self, indices: torch.Tensor, valid: torch.Tensor,
                capacity: int) -> "Relation":
@@ -84,7 +100,7 @@ class Relation:
                          None if c.valid is None else c.valid[safe])
             for n, c in self.columns.items()
         }
-        return Relation(cols, valid, capacity)
+        return Relation(cols, valid, capacity, self.sharded)
 
 
 class ExecContext:
@@ -113,6 +129,15 @@ class ExecContext:
         # the staged executor puts each stage input here before the stage
         # runs
         self._cache: dict[int, Relation] = {}
+
+    @property
+    def mesh(self):
+        """The mesh the catalog is sharded over, or None."""
+        return getattr(self.catalog, "mesh", None)
+
+    def replicated(self, rel: Relation) -> Relation:
+        """`rel` whole on every rank: gathered when it is a row block."""
+        return SH.gather_relation(rel, self.mesh) if rel.sharded else rel
 
     def add_check(self, op, kind: str, ok, cap: int = 0):
         """Attach a deferred runtime assertion, named `kind#tag` (or
@@ -154,6 +179,11 @@ class PhysicalOperator:
 
     def _execute(self, ctx: ExecContext) -> Relation:
         raise NotImplementedError
+
+    def _inputs(self, ctx: ExecContext) -> list[Relation]:
+        """Every child's output whole on every rank: the operators whose
+        rows depend on rows of other blocks gather their inputs first."""
+        return [ctx.replicated(c.execute(ctx)) for c in self.children]
 
     # pipeline-breaker protocol (build sides finish before probes run)
     def is_pipeline_breaker(self) -> bool:
@@ -212,7 +242,7 @@ def relation_from_table(table: Table) -> Relation:
         n: RelColumn(c.data, c.dtype, c.dictionary, c.domain)
         for n, c in table.columns.items()
     }
-    return Relation(cols, table.row_mask(), table.capacity)
+    return Relation(cols, table.row_mask(), table.capacity, table.sharded)
 
 
 class TableScan(PhysicalOperator):
@@ -308,6 +338,10 @@ class TableScan(PhysicalOperator):
             bound = self._index_count_bound(table)
             limit = max(max_count, int(n_rows * threshold))
             if bound is not None and bound <= limit and bound < n_rows // 2:
+                # the bound is the whole table's count (global bin counts):
+                # it holds a block's count too, and the decode pays only if
+                # it is below the capacity of the rows this scan reads (the
+                # block's, on a mesh)
                 cap = pad_count(bound)
                 if cap < table.capacity:
                     self._decode_cap = cap
@@ -343,7 +377,8 @@ class TableScan(PhysicalOperator):
                           and table.columns[n].is_sorted)
              for n in names},
             base_mask,
-            capacity)
+            capacity,
+            table.sharded)
         if getattr(self, "always_false", False):
             # statistics propagation proved the filters unsatisfiable
             return rel.with_mask(torch.zeros(capacity, dtype=torch.bool,
@@ -513,7 +548,7 @@ class Project(PhysicalOperator):
                 valid = _broadcast(valid, rel.capacity, device)
             cols[name] = RelColumn(arr, t.dtype, dictionary,
                                    domain=t.domain, valid=valid)
-        return Relation(cols, rel.mask, rel.capacity)
+        return Relation(cols, rel.mask, rel.capacity, rel.sharded)
 
     def _self_signature(self):
         return (f"project[{ {n: repr(e) for n, e in self.exprs.items()} };"
@@ -720,8 +755,28 @@ class HashJoin(PhysicalOperator):
         build_rel = self.children[1].execute(ctx)
         if not hasattr(self, "_pk"):
             self.prepare(ctx)
-        if self._pk is not None and not ctx.verify_mode and (
-                self.single_match or self.join_type in ("semi", "anti")):
+        if not ctx.verify_mode:
+            if XJ.eligible(self, ctx, probe_rel, build_rel):
+                # the radix exchange: both sides routed to their hash
+                # owners, a local sort-merge join per rank, no build side
+                # replicated
+                self._exchange_used = True
+                pkey = _combine_keys(ctx, probe_rel, self.probe_keys)
+                bkey = _combine_keys(ctx, build_rel, self.build_keys)
+                return XJ.execute(ctx, self, probe_rel, build_rel, pkey,
+                                  bkey)
+        use_pk = self._pk is not None and not ctx.verify_mode and (
+            self.single_match or self.join_type in ("semi", "anti"))
+        # on a mesh, a broadcast join: the build side whole on every rank
+        # (a PK lut's rows are global), the probe side's block joined where
+        # it lies.  FULL's unmatched build rows and the reverse-PK flags
+        # (probe-row positions) need the probe side whole too.
+        build_rel = ctx.replicated(build_rel)
+        if self.join_type == "full" or (
+                not use_pk and self._reverse_pk is not None
+                and not ctx.verify_mode):
+            probe_rel = ctx.replicated(probe_rel)
+        if use_pk:
             if self.join_type in ("semi", "anti"):
                 found = self._pk_probe(ctx, probe_rel, build_rel)[1]
                 m = ~found if self.join_type == "anti" else found
@@ -837,7 +892,7 @@ class HashJoin(PhysicalOperator):
         if self.join_type == "full":
             return self._append_unmatched_build(
                 probe_rel, build_rel, cols, valid, cap, out_build, matched)
-        return Relation(cols, valid, cap)
+        return Relation(cols, valid, cap, probe_rel.sharded)
 
     def _append_unmatched_build(self, probe_rel, build_rel, cols, valid,
                                 cap, out_build, matched):
@@ -906,7 +961,7 @@ class HashJoin(PhysicalOperator):
                 cols[self.found_column] = RelColumn(found, BOOL, None)
         else:
             mask = probe_rel.mask & found
-        return Relation(cols, mask, probe_rel.capacity)
+        return Relation(cols, mask, probe_rel.capacity, probe_rel.sharded)
 
     def describe(self):
         return (f"hash_join({self.join_type}, {self.probe_keys}={self.build_keys},"
@@ -923,7 +978,10 @@ class HashJoin(PhysicalOperator):
                 f"rpk={getattr(self, '_reverse_pk', None)};"
                 f"ov={getattr(self, '_cap_override', None)};"
                 f"fe={getattr(self, '_force_expand', False)};"
-                f"nkp={getattr(self, '_no_kernel_probe', False)}]")
+                f"nkp={getattr(self, '_no_kernel_probe', False)};"
+                f"exq={getattr(self, '_exq_probe', None)},"
+                f"{getattr(self, '_exq_build', None)};"
+                f"exu={getattr(self, '_exchange_used', False)}]")
 
 
 def _comparable(pt: Typed, bt: Typed):
@@ -1068,8 +1126,7 @@ class RangeJoin(PhysicalOperator):
         return start, count, order
 
     def _execute(self, ctx):
-        probe_rel = self.children[0].execute(ctx)
-        build_rel = self.children[1].execute(ctx)
+        probe_rel, build_rel = self._inputs(ctx)
         dev = probe_rel.mask.device
         left = self.join_type == "left"
         start, count, order = self._ranges(probe_rel, build_rel)
@@ -1151,8 +1208,10 @@ class BroadcastScalar(PhysicalOperator):
         return [self.children[1]]
 
     def _execute(self, ctx):
+        # the child's rows stay where they lie; the 1-row subplan is
+        # gathered whole
         rel = self.children[0].execute(ctx)
-        sub = self.children[1].execute(ctx)
+        sub = ctx.replicated(self.children[1].execute(ctx))
         cols = dict(rel.columns)
         present = sub.mask[0]
         for out_name, sub_name in self.names.items():
@@ -1161,7 +1220,7 @@ class BroadcastScalar(PhysicalOperator):
             cols[out_name] = RelColumn(c.array[0].expand(rel.capacity),
                                        c.dtype, c.dictionary, c.domain,
                                        valid.expand(rel.capacity))
-        return Relation(cols, rel.mask, rel.capacity)
+        return Relation(cols, rel.mask, rel.capacity, rel.sharded)
 
     def _self_signature(self):
         return f"broadcast_scalar[{sorted(self.names.items())}]"
@@ -1226,8 +1285,9 @@ class GroupAggregate(PhysicalOperator):
                 table = ctx.catalog.table(pk_table)
                 pk = table.pk_indexes.get(pk_col)
                 if pk is not None:
+                    # the group ids are the referenced table's global rows
                     self._fk_dense = (pk_table, pk_col, pk.max_key,
-                                      table.capacity)
+                                      table.global_capacity)
         self._prepare_kernel(ctx)
 
     def _execute(self, ctx):
@@ -1240,13 +1300,136 @@ class GroupAggregate(PhysicalOperator):
         # unroll-vs-scatter strategy threshold (SET small_group_limit)
         self._small = (ctx.config.small_group_limit
                        if ctx.config is not None else kernels.SMALL_GROUP_LIMIT)
-        evaluated: dict[str, Typed] = {}
-        for agg in self.aggregates:
-            if agg.expr is not None:
-                evaluated[agg.name] = rel.evaluate(agg.expr)
+        evaluated = self._evaluate(rel)
+        if rel.sharded:
+            if self._reducible(ctx, rel, evaluated):
+                return self._reduced(ctx, rel, evaluated)
+            rel = ctx.replicated(rel)
+            evaluated = self._evaluate(rel)
         if not self.keys:
             return self._ungrouped(rel, evaluated)
         return self._grouped(ctx, rel, evaluated)
+
+    def _evaluate(self, rel) -> dict[str, Typed]:
+        return {agg.name: rel.evaluate(agg.expr) for agg in self.aggregates
+                if agg.expr is not None}
+
+    def _dense_limit(self, ctx) -> int:
+        if (ctx.config is not None
+                and self.dense_domain_limit == GroupAggregate.DEFAULT_DENSE_LIMIT):
+            return ctx.config.dense_domain_limit
+        return self.dense_domain_limit
+
+    def _dense_slots(self, ctx, rel):
+        """The dense mixed-radix (sizes, codes) of the keys, or (None, None)
+        when the grouping is not dense (the single-device path's test)."""
+        sizes, codes = self._dense_codes(rel)
+        if sizes is None or int(np.prod(sizes)) > self._dense_limit(ctx) \
+                or self.carry:
+            return None, None
+        return sizes, codes
+
+    def _reducible(self, ctx, rel, evaluated) -> bool:
+        """Whether a row block's partial aggregates can be reduced over the
+        mesh into exactly the single-device answer: group slots the same on
+        every rank (no keys, or dense codes of global dictionaries and
+        domains; FK-dense and sort-based grouping read representative rows
+        of a block), and integer aggregates only (counts, exact split sums,
+        MIN / MAX through the int64 encoding; a grouped AVG from its exact
+        sum).  A DOUBLE sum, an ungrouped AVG (a float sum) and
+        SUM(DOUBLE) are order-dependent: those gather instead."""
+        if self.keys:
+            if self._fk_dense is not None and not ctx.verify_mode:
+                return False
+            if self._dense_slots(ctx, rel)[0] is None:
+                return False
+        for agg in self.aggregates:
+            if agg.kind in ("count", "min", "max"):
+                continue
+            exact = evaluated[agg.name].dtype.id in (
+                TypeId.DECIMAL, TypeId.INT32, TypeId.INT64)
+            if not exact or agg.kind not in ("sum", "avg") or (
+                    agg.kind == "avg" and not self.keys):
+                return False
+        return True
+
+    def _reduced(self, ctx, rel, evaluated) -> Relation:
+        """Partial aggregates of this rank's block over the shared group
+        slots, then one `all_reduce` per kind (SUM for counts and the (hi,
+        lo) halves of exact sums, MIN, MAX): a replicated result equal to
+        the single-device one.  An empty block adds zeros and the
+        identities."""
+        dev = rel.mask.device
+        if self.keys:
+            sizes, codes = self._dense_slots(ctx, rel)
+            gids, num_groups = groupby_ops.mixed_radix_codes(codes, sizes)
+        else:
+            gids = torch.zeros(rel.capacity, dtype=torch.int32, device=dev)
+            num_groups = 1
+        valid, small = rel.mask, self._small
+        parts: dict[str, list] = {"sum": [], "min": [], "max": []}
+
+        def part(kind, x):
+            parts[kind].append(x.to(torch.int64))
+            return kind, len(parts[kind]) - 1
+
+        counts = part("sum", kernels.group_count(gids, valid, num_groups,
+                                                 small_limit=small))
+        pending = []
+        for agg in self.aggregates:
+            if agg.kind == "count" and agg.expr is None:
+                pending.append((agg, None, counts, (), False))
+                continue
+            t = evaluated[agg.name]
+            arr = _column(t.array, rel.capacity, dev)
+            avalid = valid if t.valid is None else (valid & t.valid)
+            # without NULLs every live row counts: the row counts serve
+            nonnull = counts if t.valid is None else part(
+                "sum", kernels.group_count(gids, avalid, num_groups,
+                                           small_limit=small))
+            refs = ()
+            if agg.kind in ("sum", "avg"):
+                hi, lo = kernels.group_sum_exact(
+                    gids, arr.to(torch.int64), avalid, num_groups,
+                    small_limit=small)
+                refs = (part("sum", hi), part("sum", lo))
+            elif agg.kind in ("min", "max"):
+                fn = kernels.group_min if agg.kind == "min" \
+                    else kernels.group_max
+                fill = _I64_MAX if agg.kind == "min" else _I64_MIN
+                refs = (part(agg.kind, fn(gids, kernels.monotone_i64(arr),
+                                          avalid, num_groups, fill,
+                                          small_limit=small)),)
+            pending.append((agg, t, nonnull, refs, arr.is_floating_point()))
+        total = {kind: SH.all_reduce(torch.stack(xs), ctx.mesh, kind)
+                 for kind, xs in parts.items() if xs}
+
+        def get(ref):
+            return total[ref[0]][ref[1]]
+
+        n_rows = get(counts)
+        out_cols = self._dense_key_columns(rel, num_groups) \
+            if self.keys else {}
+        for agg, t, nonnull, refs, floating in pending:
+            nonnull = get(nonnull)
+            if t is None or agg.kind == "count":
+                out_cols[agg.name] = RelColumn(nonnull, INT64, None)
+                continue
+            out_valid = None if t.valid is None else (nonnull > 0)
+            if agg.kind in ("sum", "avg"):
+                out_cols[agg.name] = self._exact_sum_column(
+                    agg, t, get(refs[0]), get(refs[1]), nonnull, out_valid)
+            else:
+                r = kernels.monotone_i64_inverse(get(refs[0]), floating)
+                out_cols[agg.name] = RelColumn(r, t.dtype, t.dictionary,
+                                               valid=out_valid)
+        # as `_ungrouped`: without a count, an empty input gives no row
+        null_on_empty = all(a.kind != "count" for a in self.aggregates)
+        if self.keys or null_on_empty:
+            mask = n_rows > 0
+        else:
+            mask = torch.ones(1, dtype=torch.bool, device=dev)
+        return Relation(out_cols, mask, num_groups)
 
     def _fused_pattern(self, ctx):
         """Host-side check for the fused bitmap-scan + SUM pattern.
@@ -1317,6 +1500,10 @@ class GroupAggregate(PhysicalOperator):
         self._kernel = None
         if ctx.config is not None and not ctx.config.use_pallas:
             return
+        if ctx.catalog.placement != "default":
+            # a catalog on a mesh takes the plain split-sum path per block
+            # and reduces it, as the reference's kernel declines there
+            return
         info = self._fused_pattern(ctx)
         if info is None or not info["nonneg"] or info["prod_max"] >= 2**31:
             return
@@ -1368,8 +1555,13 @@ class GroupAggregate(PhysicalOperator):
             for cn in col_names[1:]:
                 val = val * table.columns[cn].data.to(torch.int64)
             hi, lo = kernels.masked_sum_exact(val, mask)
-            total = (hi << 32) + lo
             cnt = mask.sum()
+            if table.sharded:
+                # this rank's block of the table: the halves and the count
+                # added over the mesh
+                hi, lo, cnt = SH.all_reduce(torch.stack([hi, lo, cnt]),
+                                            ctx.mesh)
+            total = (hi << 32) + lo
         dt = DataType(TypeId.DECIMAL, scale) if scale else INT64
         out = {agg.name: RelColumn(total.reshape(1), dt, None)}
         # sum over an empty input is NULL -> zero result rows (matches the
@@ -1402,13 +1594,8 @@ class GroupAggregate(PhysicalOperator):
             out_cols, out_mask = self._aggregate(rel, evaluated, gids, valid,
                                                  num_groups, rep)
             return Relation(out_cols, out_mask, num_groups)
-        dense_sizes, dense_codes = self._dense_codes(rel)
-        dense_limit = self.dense_domain_limit
-        if (ctx.config is not None
-                and dense_limit == GroupAggregate.DEFAULT_DENSE_LIMIT):
-            dense_limit = ctx.config.dense_domain_limit
-        if dense_sizes is not None and int(np.prod(dense_sizes)) <= \
-                dense_limit and not self.carry:
+        dense_sizes, dense_codes = self._dense_slots(ctx, rel)
+        if dense_sizes is not None:
             gids, num_groups = groupby_ops.mixed_radix_codes(dense_codes,
                                                              dense_sizes)
             valid, rep = rel.mask, None
@@ -1747,7 +1934,7 @@ class OrderBy(PhysicalOperator):
         return True
 
     def _execute(self, ctx):
-        rel = self.children[0].execute(ctx)
+        rel, = self._inputs(ctx)
         nulls_first = (ctx.config is not None and
                        ctx.config.default_null_order == "nulls_first")
         operands = []
@@ -1787,7 +1974,7 @@ class Limit(PhysicalOperator):
         self.limit = limit
 
     def _execute(self, ctx):
-        rel = self.children[0].execute(ctx)
+        rel, = self._inputs(ctx)
         keep = rel.mask & (torch.cumsum(rel.mask.to(torch.int64), 0)
                            <= self.limit)
         return rel.with_mask(keep)
@@ -1877,7 +2064,7 @@ class Window(PhysicalOperator):
     def _execute(self, ctx):
         from ..ops import window as W
 
-        rel = self.children[0].execute(ctx)
+        rel, = self._inputs(ctx)
         dev = rel.mask.device
         parts, orders = self._key_arrays(rel)
         wctx = W.analyze(parts, orders, rel.mask)
@@ -1996,8 +2183,7 @@ class AsofJoin(PhysicalOperator):
         return [self.children[1]]
 
     def _execute(self, ctx):
-        probe_rel = self.children[0].execute(ctx)
-        build_rel = self.children[1].execute(ctx)
+        probe_rel, build_rel = self._inputs(ctx)
         dev = probe_rel.mask.device
         pt = probe_rel.evaluate(self.probe_time)
         bt = build_rel.evaluate(self.build_time)
@@ -2124,8 +2310,7 @@ class MarkJoin(PhysicalOperator):
         return [self.children[1]]
 
     def _execute(self, ctx):
-        probe_rel = self.children[0].execute(ctx)
-        build_rel = self.children[1].execute(ctx)
+        probe_rel, build_rel = self._inputs(ctx)
         bkey = _combine_keys(ctx, build_rel, self.build_keys)
         pkey = _combine_keys(ctx, probe_rel, self.probe_keys)
         bs = join_ops.build(bkey, build_rel.mask)

@@ -162,10 +162,11 @@ def _create_table_as(conn, stmt):
             data[cname] = arr.astype(np.int32) \
                 if arr.dtype in (np.int8, np.int16) else arr
             schema[cname] = c.dtype
-    t = from_numpy(stmt.name, data, schema or None, device=conn.device)
+    t = from_numpy(stmt.name, data, schema or None,
+                   device="cpu" if conn.mesh is not None else conn.device)
     for cname, nm in nullmasks.items():
         t.columns[cname].set_nulls(nm, t.capacity)
-    conn.catalog.register(t)
+    conn.register_table(t)
     return f"CREATE TABLE {stmt.name} AS ({t.num_rows} rows)", []
 
 
@@ -175,6 +176,11 @@ def _create_index(conn, stmt):
     host = col.host[: table.num_rows] if col.host is not None else \
         col.data[: table.num_rows].cpu().numpy()
     dev = table.device
+    # on a mesh the bitmap index is built whole on the host, then this
+    # rank's block of its words is taken (`shard_index`); a PK lut is
+    # replicated
+    bitmap_dev = "cpu" if conn.mesh is not None else dev
+    capacity = table.global_capacity
     if stmt.using == "pk":
         pk = DirectPKIndex.build(stmt.column, host, table.num_rows,
                                  device=dev)
@@ -185,17 +191,18 @@ def _create_index(conn, stmt):
     else:
         if col.dictionary is not None:
             idx = CubitIndex.build(stmt.column, host.astype(np.int32),
-                                   table.capacity, table.num_rows,
-                                   max(len(col.dictionary), 1), device=dev)
+                                   capacity, table.num_rows,
+                                   max(len(col.dictionary), 1),
+                                   device=bitmap_dev)
         elif stmt.n_bins is not None:
             vals = host.astype(np.int64)
             lo = int(vals.min()) if len(vals) else 0
             hi = int(vals.max()) + 1 if len(vals) else 1
             edges = np.unique(np.linspace(
                 lo, hi, stmt.n_bins + 1).astype(np.int64))[:-1]
-            idx = CubitIndex.build(stmt.column, vals, table.capacity,
+            idx = CubitIndex.build(stmt.column, vals, capacity,
                                    table.num_rows, len(edges),
-                                   bin_edges=edges, device=dev)
+                                   bin_edges=edges, device=bitmap_dev)
         else:
             values = np.unique(host.astype(np.int64))
             if len(values) > (1 << 16):
@@ -203,9 +210,13 @@ def _create_index(conn, stmt):
                     f"{stmt.column}: {len(values)} distinct values; give "
                     f"WITH (bins=N) to bin the bitmap index")
             idx = CubitIndex.build(stmt.column, host.astype(np.int64),
-                                   table.capacity, table.num_rows,
+                                   capacity, table.num_rows,
                                    max(len(values), 1), bin_edges=values,
-                                   device=dev)
+                                   device=bitmap_dev)
+        if conn.mesh is not None:
+            from ..parallel.shard import shard_index
+
+            idx = shard_index(idx, conn.mesh, table.sharded)
         table.indexes[stmt.column] = idx
     table.version += 1
     return f"CREATE INDEX on {stmt.table}({stmt.column})", []
@@ -340,8 +351,9 @@ def _create_table(conn, stmt):
         raise StatementError(f"table {stmt.name} already exists")
     schema = {cd.name: _column_type(cd) for cd in stmt.columns}
     data = {cd.name: _empty_np(schema[cd.name]) for cd in stmt.columns}
-    conn.catalog.register(from_numpy(stmt.name, data, schema,
-                                     device=conn.device))
+    conn.register_table(from_numpy(
+        stmt.name, data, schema,
+        device="cpu" if conn.mesh is not None else conn.device))
     return f"CREATE TABLE {stmt.name}", []
 
 
@@ -358,9 +370,18 @@ _HANDLERS = {A.CreateTable: _create_table, A.CreateTableAs: _create_table_as,
              A.ExplainStmt: _explain, A.PragmaStmt: _pragma}
 
 
+# statements that change rows in place: no mesh form yet (ROADMAP 14c)
+_NOT_ON_MESH = {A.Insert: "INSERT", A.Delete: "DELETE", A.Update: "UPDATE",
+                A.TransactionStmt: "a transaction"}
+
+
 def execute_statement(conn, stmt):
     """Execute a non-SELECT statement; -> (status string, rows)."""
     handler = _HANDLERS.get(type(stmt))
     if handler is None:
         raise StatementError(f"unhandled statement {type(stmt).__name__}")
+    if conn.mesh is not None and type(stmt) in _NOT_ON_MESH:
+        from ..api import mesh_unsupported
+
+        mesh_unsupported(_NOT_ON_MESH[type(stmt)])
     return handler(conn, stmt)

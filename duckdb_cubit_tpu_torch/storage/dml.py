@@ -37,6 +37,15 @@ class DmlError(RuntimeError):
     pass
 
 
+def _refuse_block(table: Table):
+    """A row block of a table on a mesh holds a part of the rows: changing
+    it in place has no mesh form yet."""
+    if table.sharded:
+        raise NotImplementedError(
+            f"DML on {table.name}, a table sharded over a mesh, is not "
+            f"supported yet (ROADMAP item 14c)")
+
+
 def _np_dtype(t: torch.Tensor) -> np.dtype:
     return np.dtype(str(t.dtype).removeprefix("torch."))
 
@@ -62,6 +71,7 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
     """Append host rows; returns the first new row id.
 
     `nulls[col]` marks the NULL slots of the appended rows."""
+    _refuse_block(table)
     n_new = len(next(iter(rows.values())))
     first = table.num_rows
     new_count = first + n_new
@@ -210,6 +220,7 @@ def _refresh_stats(table: Table, columns=None):
 def delete_rows(table: Table, row_ids: np.ndarray):
     """Mark rows deleted; each CUBIT index drops their bits (one merge per
     index)."""
+    _refuse_block(table)
     _ensure_deleted_mask(table)
     row_ids = np.asarray(row_ids, dtype=np.int64)
     rows_dev = torch.as_tensor(row_ids, device=table.device)
@@ -227,6 +238,7 @@ def update_column(table: Table, column: str, row_ids: np.ndarray,
                   new_values: np.ndarray, new_nulls: np.ndarray | None = None):
     """Point updates of one column (CUBIT's update-conscious path).
     `new_nulls` marks the rows set to NULL."""
+    _refuse_block(table)
     col = table.columns[column]
     if col.dictionary is not None:
         raise DmlError("VARCHAR update requires re-encoding (not in round 1)")

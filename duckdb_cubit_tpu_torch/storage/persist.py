@@ -43,7 +43,11 @@ def _ingestible(arr: np.ndarray) -> np.ndarray:
 def checkpoint(conn, path: str) -> None:
     """Serialize the connection's catalog; truncates the write-ahead log.
     Deleted rows are dropped from the image (row ids shift; relations are
-    unordered and the PK luts are rebuilt on open)."""
+    unordered and the PK luts are rebuilt on open).  A catalog on a mesh
+    has no checkpoint yet (ROADMAP item 14c)."""
+    if getattr(conn.catalog, "mesh", None) is not None:
+        raise NotImplementedError("a checkpoint on a mesh is not supported "
+                                  "yet (ROADMAP item 14c)")
     os.makedirs(path, exist_ok=True)
     cat = conn.catalog
     blobs: dict[str, np.ndarray] = {}

@@ -127,8 +127,21 @@ class Table:
     # a deleted row (rows never move; storage/dml.delete_rows)
     deleted: torch.Tensor | None = dataclasses.field(default=None,
                                                      kw_only=True)
+    # one rank's row block of a table sharded over a mesh
+    # (parallel/shard.py): `capacity` and every tensor are the block's,
+    # `row_offset` is the global position of its first row and `blocks` the
+    # mesh's size; num_rows, zone maps, dictionaries, domains and the host
+    # mirrors stay global
+    sharded: bool = dataclasses.field(default=False, kw_only=True)
+    row_offset: int = dataclasses.field(default=0, kw_only=True)
+    blocks: int = dataclasses.field(default=1, kw_only=True)
 
     _UIDS = itertools.count()
+
+    @property
+    def global_capacity(self) -> int:
+        """The capacity of the whole table (the blocks' together)."""
+        return self.capacity * self.blocks
 
     def column(self, name: str) -> Column:
         return self.columns[name]
@@ -138,8 +151,10 @@ class Table:
         return list(self.columns.keys())
 
     def row_mask(self) -> torch.Tensor:
-        """Live rows: inside `num_rows` and not deleted."""
-        mask = torch.arange(self.capacity, device=self.device) < self.num_rows
+        """Live rows: inside `num_rows` and not deleted (of a block: its
+        rows' global positions against the global `num_rows`)."""
+        rows = torch.arange(self.capacity, device=self.device)
+        mask = rows + self.row_offset < self.num_rows
         return mask if self.deleted is None else mask & ~self.deleted
 
 
@@ -316,9 +331,12 @@ class Catalog:
         self.tables: dict[str, Table] = {}
         # foreign-key registry: fk column name -> (pk table, pk column)
         self.foreign_keys: dict[str, tuple[str, str]] = {}
-        # device placement tag, kept for parity with the reference (the
-        # port has no mesh placement yet)
+        # device placement tag: "default", or "mesh<n>:<id>" for a catalog
+        # sharded over a mesh (parallel/shard.shard_catalog), whose `mesh`
+        # it then holds; part of every prepare-cache key, so two placements
+        # never share prepared plans
         self.placement = "default"
+        self.mesh = None
         # the device of sources that read no table (SELECT without FROM,
         # range()); api.Connection sets it to its own
         self.device: torch.device | None = None

@@ -13,6 +13,7 @@ then be held against each other on the very same state.
 from __future__ import annotations
 
 import os
+import tempfile
 
 import numpy as np
 import torch
@@ -52,14 +53,25 @@ def _encode_tables(tables: dict) -> dict:
 
 
 def _save_disk_cache(sf: float, encoded: dict):
+    """Write the cache file through a temporary file of this writer's own in
+    the same directory, then rename it into place: processes that load the
+    same scale factor at once (the ranks of a mesh) each write whole files,
+    and `os.replace` keeps the last one, never a mix."""
     os.makedirs(DISK_CACHE_DIR, exist_ok=True)
     blobs = {f"{t}/{c}/{kind}": arr
              for t, cols in encoded.items()
              for c, parts in cols.items()
              for kind, arr in parts.items()}
-    tmp = _disk_cache_path(sf) + ".tmp.npz"
-    np.savez(tmp, **blobs)
-    os.replace(tmp, _disk_cache_path(sf))
+    fd, tmp = tempfile.mkstemp(prefix=f"tpch_sf{sf}.", suffix=".tmp",
+                               dir=DISK_CACHE_DIR)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **blobs)
+        os.replace(tmp, _disk_cache_path(sf))
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
 
 
 def _load_disk_cache(sf: float):

@@ -6,8 +6,9 @@ text of Q21, one sqllogic file through the port's runner, a window query, a
 band join, an ASOF join, DML in a rolled-back transaction, a checkpoint and
 `open_database`; then a verified query (leg 4 included), EXPLAIN ANALYZE, a
 prepared query and a query forced out of core; then Q6's step on a
-one-rank gloo mesh (the mesh layer) and the shell's module; and must never
-have loaded jax or the reference package.
+one-rank gloo mesh (the mesh layer), Q6's SQL text on the engine sharded
+over that mesh (`parallel/shard.py`, `parallel/exchange_join.py`) and the
+shell's module; and must never have loaded jax or the reference package.
 """
 
 import os
@@ -81,11 +82,15 @@ hi, lo = distributed.make_q6_step(mesh)(
     words, words, words, torch.arange(64), torch.full((64,), 2),
     torch.ones(64, dtype=torch.bool))
 assert (int(hi), int(lo)) == (0, 2 * (0 + 1 + 3 + sum(range(32, 64))))
+on_mesh = api.connect(sf=0.01, device="cpu", mesh=mesh)
+assert on_mesh.catalog.table("lineitem").sharded
+assert on_mesh.sql(SQL[6]).strings() == rows, on_mesh.sql(SQL[6]).strings()
 dist.destroy_process_group()
 for m in ("sql.statements", "storage.dml", "tpch.sql_queries",
           "testing.sqllogic", "tpch.answers", "ops.window",
           "storage.persist", "exec.pyverify", "exec.profiler", "shell",
-          "parallel.mesh", "parallel.exchange", "parallel.distributed"):
+          "parallel.mesh", "parallel.exchange", "parallel.distributed",
+          "parallel.shard", "parallel.exchange_join"):
     assert "duckdb_cubit_tpu_torch." + m in sys.modules, m
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "duckdb_cubit_tpu"))
