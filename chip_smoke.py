@@ -2,7 +2,7 @@
 the public API, all 22 TPC-H plan builders, the 22 TPC-H SQL texts, the
 sqllogic files the port runs, window functions and range / ASOF joins over
 the catalog, the reference's three benchmark entry points, then DML under a
-transaction, a checkpoint and a restart.
+transaction, a checkpoint and a restart, on one device and on a mesh.
 
     python3 chip_smoke.py            # SF1 (6,001,215 lineitem rows)
     python3 chip_smoke.py --sf 10    # SF10
@@ -153,15 +153,28 @@ raises on failure (non-zero exit):
      DELETE in the write-ahead log, and `open_database(path,
      device="cuda")`, whose Q1, Q6 and Q3 equal the first connection's.
      Each statement's time, the checkpoint's seconds and bytes and the
-     reopen's seconds are printed.
+     reopen's seconds are printed;
+ 16. DML, transactions, persistence and the deadline on a mesh: a fresh
+     `connect(sf, device="cuda", mesh=make_mesh(1))` on a one-rank NCCL
+     group runs phase 15's statements in its order, each query's rows
+     equal to phase 15's after the same statement (K1 never launches, K2
+     where phase 15 requires it); a checkpoint written by the mesh, the
+     committed DELETE in its log, and the reopen onto the mesh
+     (`Connection(open_database(path, device="cpu").catalog, ...,
+     mesh=...)`); then, on it and on phase 15's reopened connection side
+     by side, an INSERT of three lineitem rows through SQL, an
+     `append_rows` that grows lineitem past its capacity (Q1, Q6, Q12, Q3
+     equal), and q13 under a 0.2 s deadline (it must raise; Q6 answers
+     after it).  Each statement's time, the checkpoint's seconds and bytes
+     and the reopen's seconds are printed beside phase 15's.
 
 The kernel table is one JSON line (each kernel's `launches` sums the main
 path's runs: the four SQL queries, the 22 plans, the 22 SQL texts, the
 window / join queries, the executor modes, the engine on a mesh and the
-DML phase's queries, split in `launches_by_path` as "sql", "tpch_plans",
-"tpch_sql", "windows", "verification", "external", "mesh_engine" and
-"dml"), then the card's name and power limit; the last line is {"ok": true,
-"device": {...}}.
+two DML phases' queries, split in `launches_by_path` as "sql",
+"tpch_plans", "tpch_sql", "windows", "verification", "external",
+"mesh_engine", "dml" and "mesh_dml"), then the card's name and power
+limit; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -896,8 +909,12 @@ def dml_transactions_persistence(conn, card: str, prepared,
     `q6_rows` after the UPDATE; executed afresh, the new oracle), ROLLBACK,
     then a checkpoint of the whole catalog, a committed DELETE in the
     write-ahead log and `open_database` on the card.  Every query has the
-    launch counts set to 0 just before it and read just after.
-    -> {"launches": {kernel: total}, "steps": [...]}."""
+    launch counts set to 0 just before it and read just after.  The rows
+    of each query are kept under "<step>/<query>" for the mesh's DML phase
+    (`mesh_dml`), which runs the same statements, and the reopened
+    connection is kept for its steps that go further.
+    -> {"launches": {kernel: total}, "steps": [...], "rows": {...},
+    "reopened": the reopened connection, ...}."""
     import shutil
     import tempfile
 
@@ -909,6 +926,8 @@ def dml_transactions_persistence(conn, card: str, prepared,
     queries = {"Q6": Q6, "Q1": Q1, "Q12": Q12, "Q3": Q3}
     totals = {"fused_scan_sum": 0, "monotone_gather": 0}
     steps = []
+    recorded = {}
+    at = ["before"]
 
     def statement(sql):
         torch.cuda.synchronize()
@@ -924,6 +943,7 @@ def dml_transactions_persistence(conn, card: str, prepared,
 
     def query(name, want=None, k1=None, k2_min=0, c=conn):
         rows, counts = counted(lambda: c.sql(queries[name]).strings())
+        recorded[f"{at[0]}/{name}"] = rows
         against = "its numpy oracle" if want is None else "the rows"
         want = oracle_of(c.catalog, name) if want is None else want
         if not rows_agree(rows, want):
@@ -944,8 +964,10 @@ def dml_transactions_persistence(conn, card: str, prepared,
 
     print("step 1: the rows before")
     base = {name: conn.sql(sql).strings() for name, sql in queries.items()}
+    recorded.update({f"before/{name}": rows for name, rows in base.items()})
     sf = cat.table("lineitem").num_rows / 6_001_215
     print("step 2: BEGIN; UPDATE about 1% of lineitem")
+    at[0] = "update_lineitem"
     statement("BEGIN")
     statement(f"UPDATE lineitem SET l_discount = l_discount + 0.01 WHERE "
               f"l_orderkey <= {int(60000 * sf)} AND l_discount < 0.10")
@@ -961,6 +983,7 @@ def dml_transactions_persistence(conn, card: str, prepared,
     print(f"  prepared Q6 pinned before the UPDATE: {pinned}, the rows of "
           f"step 1; executed afresh: {fresh}, the new oracle")
     print("step 3: UPDATE about 1% of orders on a value-lut column of Q3")
+    at[0] = "update_orders"
     top = int(base["Q3"][0][0])
     statement(f"UPDATE orders SET o_shippriority = 1 WHERE o_orderkey "
               f"BETWEEN {top - int(30000 * sf)} AND {top + int(30000 * sf)}")
@@ -969,14 +992,17 @@ def dml_transactions_persistence(conn, card: str, prepared,
         raise AssertionError(f"Q3's first row {rows[0]} does not show the "
                              f"updated o_shippriority of order {top}")
     print("step 4: DELETE about 1/7 of orders")
+    at[0] = "delete_orders"
     statement("DELETE FROM orders WHERE o_orderdate < DATE '1993-01-01'")
     query("Q12", k2_min=1)
     query("Q3", k2_min=1)
     print("step 5: DELETE lineitem rows with l_quantity > 45")
+    at[0] = "delete_lineitem"
     statement("DELETE FROM lineitem WHERE l_quantity > 45")
     query("Q1")
     query("Q6", k1=0)
     print("step 6: ROLLBACK")
+    at[0] = "rollback"
     statement("ROLLBACK")
     for name in queries:
         query(name, want=base[name], k1=1 if name == "Q6" else None)
@@ -991,6 +1017,7 @@ def dml_transactions_persistence(conn, card: str, prepared,
                    for f in os.listdir(path))
         print(f"  checkpoint of {len(cat.tables)} tables: {ckpt_s:.2f} s, "
               f"{disk} B on disk  [{card}]")
+        at[0] = "after_log"
         statement("BEGIN")
         statement(f"DELETE FROM lineitem WHERE l_orderkey <= "
                   f"{int(60000 * sf)}")
@@ -1001,18 +1028,19 @@ def dml_transactions_persistence(conn, card: str, prepared,
             raise AssertionError(f"the log holds {logged} statements")
         after = {name: query(name) for name in ("Q1", "Q6", "Q3")}
         print("step 8: open_database on the card")
+        at[0] = "reopened"
         t0 = time.perf_counter()
-        conn2 = open_database(path, device="cuda")
+        conn2 = open_database(path, device=conn.device)
         torch.cuda.synchronize()
         open_s = time.perf_counter() - t0
         print(f"  open_database (checkpoint + log replay): {open_s:.2f} s  "
               f"[{card}]")
-        if not all(c.data.is_cuda for t in conn2.catalog.tables.values()
+        if not all(c.data.device.type == conn.device.type
+                   for t in conn2.catalog.tables.values()
                    for c in t.columns.values()):
             raise AssertionError("the reopened catalog is not on the card")
         for name in ("Q1", "Q6", "Q3"):
             query(name, want=after[name], c=conn2)
-        del conn2
     finally:
         conn.db_path = None
         shutil.rmtree(path, ignore_errors=True)
@@ -1023,7 +1051,7 @@ def dml_transactions_persistence(conn, card: str, prepared,
            "open_s": open_s}
     print(json.dumps({"dml": out}))
     return {"launches": totals, "prepared_launches": prepared_launches,
-            **out}
+            "rows": recorded, "reopened": conn2, **out}
 
 
 def verified(conn, sql: str) -> tuple:
@@ -2300,6 +2328,257 @@ def mesh_engine(conn, texts: dict, sf: float, card: str,
     return {"launches": launches}
 
 
+def lineitem_rows(table, n: int, key_shift: int) -> dict:
+    """`n` rows for `dml.append_rows`, copied from the first rows of a
+    lineitem table's host mirrors (strings decoded), their l_orderkey moved
+    past every order: they join no order, and (l_orderkey, l_linenumber)
+    stays unique."""
+    rows = {}
+    for name, col in table.columns.items():
+        host = col.host[:n]
+        rows[name] = col.dictionary[host] if col.dictionary is not None \
+            else host.copy()
+    rows["l_orderkey"] = rows["l_orderkey"].astype(np.int64) + key_shift
+    return rows
+
+
+# a few lineitem rows through SQL: Q1 and Q6 read them, no order joins them
+# (a new l_comment re-encodes that column's dictionary)
+INSERT_LINEITEM = ("INSERT INTO lineitem VALUES "
+                   "(7000001, 1, 1, 1, 10, 12345.60, 0.06, 0.02, 'N', 'O', "
+                   "'1994-06-01', '1994-06-15', '1994-06-20', "
+                   "'DELIVER IN PERSON', 'MAIL', 'mesh smoke row one'), "
+                   "(7000001, 2, 2, 2, 20, 23456.70, 0.05, 0.01, 'R', 'F', "
+                   "'1994-09-09', '1994-09-19', '1994-09-29', 'NONE', 'SHIP', "
+                   "'mesh smoke row two'), "
+                   "(7000002, 3, 3, 1, 30, 34567.80, 0.07, 0.00, 'A', 'F', "
+                   "'1995-02-02', '1995-02-12', '1995-02-22', "
+                   "'TAKE BACK RETURN', 'AIR', 'mesh smoke row three')")
+
+
+def mesh_dml(single: dict, sf: float, card: str, backend: str = "nccl",
+             device="cuda") -> dict:
+    """DML, transactions, persistence and the deadline on a one-rank NCCL
+    mesh over the SF catalog on the card (`connect(sf, device="cuda",
+    mesh=make_mesh(1))`, as the engine-on-a-mesh phase connects): the
+    statements of the single-device DML phase in its order, each query's
+    rows equal to that phase's rows after the same statement (`single`,
+    from `dml_transactions_persistence`), K1 never launching and K2 in Q12
+    and Q3 where that phase requires it; a checkpoint written by the mesh,
+    a committed DELETE in its write-ahead log, and the reopen onto the mesh
+    (`Connection(open_database(path, device="cpu").catalog, device=...,
+    mesh=mesh)`).  Then, on the reopened mesh and on the single device's
+    reopened connection side by side: an INSERT of three lineitem rows
+    through SQL, a direct `append_rows` that grows lineitem past its
+    capacity, and q13 under a 0.2 s deadline, which must raise, with Q6
+    answering after it.  Each statement's time is printed beside the
+    single device's, as are the checkpoint's seconds and bytes and the
+    reopen's seconds.  One rank holds the whole table: the blocks' offsets,
+    growth and re-blocking run on 8 gloo ranks in the CPU tests.
+    -> {"launches": {kernel: launches on the counted queries}, ...}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from duckdb_cubit_tpu_torch.api import Connection, QueryTimeoutError
+    from duckdb_cubit_tpu_torch.api import connect as connect_to
+    from duckdb_cubit_tpu_torch.exec.result import to_strings
+    from duckdb_cubit_tpu_torch.parallel.mesh import make_mesh
+    from duckdb_cubit_tpu_torch.storage import dml
+    from duckdb_cubit_tpu_torch.storage.persist import open_database
+    from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
+    from duckdb_cubit_tpu_torch.types import TypeId
+
+    device = torch.device(device)
+    queries = {"Q6": Q6, "Q1": Q1, "Q12": Q12, "Q3": Q3}
+    launches = {"fused_scan_sum": 0, "monotone_gather": 0}
+    single_steps = list(single["steps"])
+    steps = []
+    tmp = tempfile.mkdtemp(prefix="mesh-dml-")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def statement(c, sql):
+        """A statement of the single-device phase, in its order."""
+        status, secs = timed(lambda: c.sql(sql).status)
+        want = single_steps[len(steps)]
+        if " ".join(sql.split()) != want["sql"] or status != want["status"]:
+            raise AssertionError(f"mesh {status!r} for {sql!r}, single "
+                                 f"device {want['status']!r} for "
+                                 f"{want['sql']!r}")
+        print(f"  {status}: {' '.join(sql.split())[:70]}: mesh {secs:.3f} s, "
+              f"single device {want['seconds']:.3f} s  [{card}]")
+        steps.append({"sql": want["sql"], "status": status,
+                      "mesh_s": secs, "single_s": want["seconds"]})
+
+    def query(c, name, want, k2_min=0):
+        rel, counts = counted(lambda: c.sql(queries[name]).relation)
+        rows = to_strings(rel)
+        doubles = [col.dtype.id == TypeId.DOUBLE
+                   for col in rel.columns.values()]
+        if not cells_agree(rows, want, doubles):
+            raise AssertionError(f"{name} on the mesh disagrees with the "
+                                 f"single device: {rows[:3]} vs {want[:3]}")
+        if counts["fused_scan_sum"] != 0:
+            raise AssertionError(f"{name} launched K1 on the mesh")
+        if counts["monotone_gather"] < k2_min:
+            raise AssertionError(f"{name} did not launch K2 on the mesh")
+        for k in launches:
+            launches[k] += counts[k]
+        print(f"  {name}: {rows[0]}{' ...' if len(rows) > 1 else ''}, equal "
+              f"to the single device's; K1 {counts['fused_scan_sum']}, K2 "
+              f"{counts['monotone_gather']}")
+        return rows
+
+    def same(step, c, names, k2=()):
+        for name in names:
+            query(c, name, single["rows"][f"{step}/{name}"],
+                  k2_min=1 if name in k2 else 0)
+
+    def blocks_on_card(c):
+        for t in c.catalog.tables.values():
+            if not t.sharded or t.device != mesh.device:
+                raise AssertionError(f"{t.name} is not a row block on "
+                                     f"{mesh.device}")
+
+    try:
+        mesh = make_mesh(1, backend=backend, device=device)
+        mconn, secs = timed(lambda: connect_to(sf, device=device, mesh=mesh))
+        blocks_on_card(mconn)
+        print(f"connect(sf={sf:g}, device='cuda', mesh=make_mesh(1)) in "
+              f"{secs:.2f} s: every table a row block on {mesh.device}")
+        cat = mconn.catalog
+        scale = cat.table("lineitem").num_rows / 6_001_215
+        print("step 1: the rows before")
+        same("before", mconn, queries, k2=("Q12", "Q3"))
+        print("step 2: BEGIN; UPDATE about 1% of lineitem")
+        statement(mconn, "BEGIN")
+        statement(mconn, f"UPDATE lineitem SET l_discount = l_discount + "
+                         f"0.01 WHERE l_orderkey <= {int(60000 * scale)} "
+                         f"AND l_discount < 0.10")
+        same("update_lineitem", mconn, ["Q6"])
+        print("step 3: UPDATE about 1% of orders on a value-lut column of "
+              "Q3")
+        top = int(single["rows"]["before/Q3"][0][0])
+        statement(mconn, f"UPDATE orders SET o_shippriority = 1 WHERE "
+                         f"o_orderkey BETWEEN {top - int(30000 * scale)} "
+                         f"AND {top + int(30000 * scale)}")
+        same("update_orders", mconn, ["Q3"], k2=("Q3",))
+        print("step 4: DELETE about 1/7 of orders")
+        statement(mconn, "DELETE FROM orders WHERE o_orderdate < "
+                         "DATE '1993-01-01'")
+        same("delete_orders", mconn, ["Q12", "Q3"], k2=("Q12", "Q3"))
+        print("step 5: DELETE lineitem rows with l_quantity > 45")
+        statement(mconn, "DELETE FROM lineitem WHERE l_quantity > 45")
+        same("delete_lineitem", mconn, ["Q1", "Q6"])
+        print("step 6: ROLLBACK")
+        statement(mconn, "ROLLBACK")
+        same("rollback", mconn, queries, k2=("Q12", "Q3"))
+        print("step 7: checkpoint on the mesh, then a committed DELETE in "
+              "the log")
+        path = os.path.join(tmp, "db")
+        mconn.attach(path)
+        _, ckpt_s = timed(mconn.checkpoint)
+        disk = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        print(f"  checkpoint of {len(cat.tables)} tables: mesh "
+              f"{ckpt_s:.2f} s, {disk} B; single device "
+              f"{single['checkpoint_s']:.2f} s, "
+              f"{single['checkpoint_bytes']} B  [{card}]")
+        statement(mconn, "BEGIN")
+        statement(mconn, f"DELETE FROM lineitem WHERE l_orderkey <= "
+                         f"{int(60000 * scale)}")
+        statement(mconn, "COMMIT")
+        with open(os.path.join(path, "wal.sql")) as f:
+            logged = f.read().count(";\n")
+        if logged != 1:
+            raise AssertionError(f"the mesh's log holds {logged} statements")
+        same("after_log", mconn, ["Q1", "Q6", "Q3"])
+        print("step 8: open_database, then the catalog onto the mesh")
+        del mconn, cat
+        mconn, open_s = timed(lambda: Connection(
+            open_database(path, device="cpu").catalog, device=device,
+            mesh=mesh))
+        blocks_on_card(mconn)
+        print(f"  reopen onto the mesh: {open_s:.2f} s; open_database on "
+              f"the card: {single['open_s']:.2f} s  [{card}]")
+        same("reopened", mconn, ["Q1", "Q6", "Q3"], k2=("Q3",))
+
+        # further than the single-device phase: the same statements on its
+        # reopened connection, side by side
+        other = single["reopened"]
+        other.db_path = None    # its directory is gone with that phase
+        both = (("mesh", mconn), ("single device", other))
+
+        def side_by_side(label, run):
+            secs = {}
+            for side, c in both:
+                _, secs[side] = timed(lambda: run(c))
+            print(f"  {label}: mesh {secs['mesh']:.3f} s, single device "
+                  f"{secs['single device']:.3f} s  [{card}]")
+            steps.append({"sql": label, "mesh_s": secs["mesh"],
+                          "single_s": secs["single device"]})
+
+        def compare(names):
+            for name in names:
+                query(mconn, name, other.sql(queries[name]).strings())
+
+        print("step 9: INSERT of three lineitem rows through SQL")
+        side_by_side("INSERT 3 lineitem rows",
+                     lambda c: c.sql(INSERT_LINEITEM))
+        compare(["Q1", "Q6"])
+        li = mconn.catalog.table("lineitem")
+        capacity = li.global_capacity
+        n_new = max(4096, capacity - li.num_rows + 1)
+        print(f"step 10: append_rows of {n_new} lineitem rows, past the "
+              f"capacity of {capacity}")
+        rows = lineitem_rows(other.catalog.table("lineitem"), n_new,
+                             10_000_000)
+        side_by_side(f"append_rows {n_new} lineitem rows",
+                     lambda c: dml.append_rows(
+                         c.catalog.table("lineitem"), rows))
+        grown = [c.catalog.table("lineitem").global_capacity
+                 for _, c in both]
+        if grown[0] != grown[1] or grown[0] <= capacity:
+            raise AssertionError(f"lineitem's capacity after the append: "
+                                 f"{grown}, before {capacity}")
+        blocks_on_card(mconn)
+        print(f"  lineitem capacity {capacity} -> {grown[0]} on both")
+        compare(["Q1", "Q6", "Q12", "Q3"])
+        print("step 11: q13 under a 0.2 s deadline, then Q6")
+        mconn.sql("SET query_timeout_s = 0.2")
+        t0 = time.perf_counter()
+        try:
+            mconn.sql(SQL[13]).strings()
+            raise AssertionError("q13 was not cut by the 0.2 s deadline")
+        except QueryTimeoutError as e:
+            cut = time.perf_counter() - t0
+            print(f"  q13 cut on the mesh after {cut:.3f} s: {e}")
+        finally:
+            mconn.sql("SET query_timeout_s = 0")
+        compare(["Q6"])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if launches["monotone_gather"] < 1:
+        raise AssertionError("K2 never launched in the mesh's DML phase")
+    out = {"steps": steps, "checkpoint_s": ckpt_s, "checkpoint_bytes": disk,
+           "reopen_s": open_s, "deadline_s": cut}
+    print(f"DML, transactions, persistence and the deadline on a mesh: "
+          f"every step equals the single device; launches {launches}  "
+          f"[{card}]")
+    print(json.dumps({"mesh_dml": out}))
+    return {"launches": launches, **out}
+
+
 def _shell_lines(out: str) -> list[str]:
     lines = []
     for line in out.splitlines():
@@ -2598,6 +2877,10 @@ def main() -> int:
     phase(f"DML, transactions and persistence at SF{args.sf:g}")
     dml = dml_transactions_persistence(conn, card, modes["prepared"],
                                        modes["q6_rows"])
+    phase(f"DML, transactions, persistence and the deadline on a mesh at "
+          f"SF{args.sf:g}")
+    meshed = mesh_dml(dml, args.sf, card)
+    del dml["reopened"]
     by_path = {name: {"sql": launches[name],
                       "tpch_plans": plans["launches"][name],
                       "tpch_sql": texts["launches"][name],
@@ -2606,7 +2889,8 @@ def main() -> int:
                       + dml["prepared_launches"][name],
                       "external": modes["launches"]["external"][name],
                       "mesh_engine": engine["launches"][name],
-                      "dml": dml["launches"][name]}
+                      "dml": dml["launches"][name],
+                      "mesh_dml": meshed["launches"][name]}
                for name in plans["launches"]}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())

@@ -27,8 +27,14 @@ rank of a `torch.distributed` world, e.g. inside `parallel/spawn.run`) the
 catalog is sharded (`parallel/shard.py`): each rank holds its row blocks on
 the mesh's device, runs the same plans, and gets the same rows back.  The
 TPC-H catalog is loaded on the host and each rank copies its blocks to its
-card.  DML, transactions, checkpoints, `attach` and `query_timeout_s` raise
-`NotImplementedError` on a mesh (ROADMAP item 14c).
+card.  DML and transactions change each rank's blocks and the same global
+host state on every rank (`storage/dml.py`).  Rank 0 alone writes the
+durable directory (`attach`, the write-ahead log, `checkpoint`, which
+gathers what only the blocks hold); a database reopens onto a mesh as
+`Connection(open_database(path, device="cpu").catalog, device=...,
+mesh=mesh)`.  Under `query_timeout_s` the alarm only sets a flag, which the
+ranks read together (`Executor.poll_deadline`): every rank raises
+`QueryTimeoutError` at the same collective.
 """
 
 from __future__ import annotations
@@ -84,18 +90,28 @@ class QueryTimeoutError(RuntimeError):
     """A SELECT exceeded `config.query_timeout_s`: it is abandoned and the
     session stays usable.  The deadline is a SIGALRM handler, which runs
     only between Python steps: a device wait in progress is not cut short,
-    and kernels already queued on the card finish after the exception.  A
-    query cut short leaves no half-set state: the prepare cache is written
-    in one step, once a plan's decisions are all made."""
+    and kernels already queued on the card finish after the exception.  On
+    a mesh it is raised at the first collective after the alarm, on every
+    rank.  A query cut short leaves no half-set state: the prepare cache is
+    written in one step, once a plan's decisions are all made."""
 
 
 class _QueryDeadline:
     """SIGALRM-based per-query deadline (main thread only; a no-op
-    elsewhere: other threads cannot receive SIGALRM)."""
+    elsewhere: other threads cannot receive SIGALRM).  With `flag_only`
+    (on a mesh) the alarm sets `expired` instead of raising: a rank that
+    raised inside a collective would leave the others waiting."""
 
-    def __init__(self, seconds: float):
+    def __init__(self, seconds: float, flag_only: bool = False):
         self.seconds = seconds
+        self.flag_only = flag_only
         self.active = False
+        self.expired = False
+
+    def error(self) -> QueryTimeoutError:
+        return QueryTimeoutError(
+            f"query exceeded {self.seconds:.1f}s deadline "
+            f"(SET query_timeout_s = 0 to disable)")
 
     def __enter__(self):
         off_main = (threading.current_thread()
@@ -103,12 +119,13 @@ class _QueryDeadline:
         if self.seconds <= 0 or off_main:
             return self
 
-        def raise_timeout(signum, frame):
-            raise QueryTimeoutError(
-                f"query exceeded {self.seconds:.1f}s deadline "
-                f"(SET query_timeout_s = 0 to disable)")
+        def on_alarm(signum, frame):
+            if self.flag_only:
+                self.expired = True
+            else:
+                raise self.error()
 
-        self._old = signal.signal(signal.SIGALRM, raise_timeout)
+        self._old = signal.signal(signal.SIGALRM, on_alarm)
         signal.setitimer(signal.ITIMER_REAL, self.seconds)
         self.active = True
         return self
@@ -118,12 +135,6 @@ class _QueryDeadline:
             signal.setitimer(signal.ITIMER_REAL, 0)
             signal.signal(signal.SIGALRM, self._old)
         return False
-
-
-def mesh_unsupported(what: str):
-    """Raise for a feature that has no mesh form yet."""
-    raise NotImplementedError(
-        f"{what} on a mesh is not supported yet (ROADMAP item 14c)")
 
 
 class Connection:
@@ -174,27 +185,33 @@ class Connection:
             table = shard_table(table, self.mesh)
         self.catalog.register(table)
 
+    @property
+    def writes_files(self) -> bool:
+        """Whether this process writes the durable directory: on a mesh,
+        rank 0 alone (every rank keeps `db_path`, so all take the same
+        branches)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def attach(self, path: str):
         """Make the connection durable under `path`: later DDL / DML go to
         its write-ahead log.  ":memory:" keeps it in memory (no directory is
         made; the reference creates one named ":memory:")."""
         import os
 
-        if self.mesh is not None:
-            mesh_unsupported("attach")
         if path == ":memory:":
             self.db_path = None
             return self
-        os.makedirs(path, exist_ok=True)
+        if self.writes_files:
+            os.makedirs(path, exist_ok=True)
         self.db_path = path
         return self
 
     def checkpoint(self, path: str | None = None):
-        """Write the catalog to disk and truncate the write-ahead log."""
+        """Write the catalog to disk and truncate the write-ahead log (on a
+        mesh: every rank takes part, rank 0 writes, and no rank returns
+        before the files are complete)."""
         from .storage.persist import checkpoint
 
-        if self.mesh is not None:
-            mesh_unsupported("checkpoint")
         target = path or self.db_path
         if target is None:
             raise ValueError("no database path: attach(path) first")
@@ -239,20 +256,24 @@ class Connection:
             # the deadline covers a SELECT only: DML and transactions are
             # never cut midway
             timeout = self.config.query_timeout_s
-            if timeout > 0 and self.mesh is not None:
-                # a SIGALRM on one rank, inside a collective, would leave
-                # the others waiting
-                mesh_unsupported("query_timeout_s")
-            with _QueryDeadline(timeout):
-                rel = self.executor.execute(self.binder.bind(stmt),
-                                            profile=profile)
-                # the result's count is where a long device queue blocks:
-                # read it inside the deadline when one is set
-                if timeout > 0:
-                    rel.count()
+            on_mesh = timeout > 0 and self.mesh is not None
+            with _QueryDeadline(timeout, flag_only=on_mesh) as deadline:
+                # on a mesh the executor reads the alarm's flag, reduced
+                # over the ranks, at its collectives
+                self.executor.deadline = deadline if on_mesh else None
+                try:
+                    rel = self.executor.execute(self.binder.bind(stmt),
+                                                profile=profile)
+                    # the result's count is where a long device queue
+                    # blocks: read it inside the deadline when one is set
+                    if timeout > 0:
+                        rel.count()
+                        self.executor.poll_deadline()
+                finally:
+                    self.executor.deadline = None
             return Result(rel)
         status, rows = statements.execute_statement(self, stmt)
-        if (self.db_path and not self._wal_replaying
+        if (self.db_path and self.writes_files and not self._wal_replaying
                 and isinstance(stmt, _LOGGED)):
             # logged only once the statement succeeded; inside a transaction
             # the entries wait for COMMIT, so a rolled-back statement never
@@ -267,8 +288,6 @@ class Connection:
 
     # ------------------------------------------------------- transactions
     def begin(self):
-        if self.mesh is not None:
-            mesh_unsupported("a transaction")
         if self._txn_snapshot is not None:
             raise RuntimeError("transaction already active")
         self._txn_snapshot = self.catalog.snapshot()
@@ -277,7 +296,7 @@ class Connection:
     def commit(self):
         if self._txn_snapshot is None:
             raise RuntimeError("no active transaction")
-        if self.db_path and self._txn_wal:
+        if self.db_path and self.writes_files and self._txn_wal:
             from .storage.persist import wal_append
 
             for q in self._txn_wal:

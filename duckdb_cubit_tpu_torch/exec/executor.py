@@ -39,6 +39,9 @@ their one read, a stage boundary's compaction count is the largest block's
 (every rank picks the same bucket, blocks stay equal in size), and a
 sharded root is gathered, so `execute` returns the same relation on every
 rank.  A radix-exchange join's bucket overflow (`exq`) doubles its quotas.
+Under a query deadline on a mesh (`api.Connection.sql`) the alarm only sets
+a flag; each of those collectives carries it too (a MAX over the ranks),
+so every rank raises `QueryTimeoutError` at the same one.
 """
 
 from __future__ import annotations
@@ -214,6 +217,9 @@ class Executor:
         # agreed exactly, DOUBLE cells included
         self.last_legs: list = []
         self.legs_exact = None
+        # a mesh query's deadline (api._QueryDeadline, flag only), set by
+        # the connection while the query runs
+        self.deadline = None
 
     def execute(self, plan: PhysicalOperator, profile: bool = False,
                 optimize: bool = True, verify: bool | None = None
@@ -327,18 +333,45 @@ class Executor:
             self._prepare(plan)
         raise RuntimeError(f"retry limit exceeded: {failed}")
 
+    def _deadline_flag(self) -> torch.Tensor | None:
+        """Whether this rank's alarm went off, as a 0-d int64 tensor on the
+        mesh's device; None unless a mesh query runs under a deadline."""
+        if self.deadline is None or self.mesh is None:
+            return None
+        return torch.tensor(int(self.deadline.expired),
+                            device=self.mesh.device)
+
+    def poll_deadline(self):
+        """On a mesh under a deadline: raise `QueryTimeoutError` on every
+        rank when any rank's alarm went off (one MAX over the mesh, which
+        every rank must reach).  Nothing elsewhere."""
+        flag = self._deadline_flag()
+        if flag is None:
+            return
+        from ..parallel.shard import all_reduce
+
+        if int(all_reduce(flag, self.mesh, "max")):
+            raise self.deadline.error()
+
     def _failed_checks(self, checks) -> list[str]:
         """Names of the checks that failed (one device -> host read; on a
         mesh the flags are ANDed over the ranks first, so every rank retries
-        the same operators)."""
-        if not checks:
+        the same operators, and under a deadline the same read carries the
+        alarm's flag)."""
+        flag = self._deadline_flag()
+        if not checks and flag is None:
             return []
-        flags = torch.stack([ok for _, ok in checks])
+        flags = [ok for _, ok in checks]
+        if flag is not None:
+            flags.append(flag == 0)
+        flags = torch.stack(flags)
         if self.mesh is not None:
             from ..parallel.shard import all_ok
 
             flags = all_ok(flags, self.mesh)
         flags = flags.tolist()
+        if flag is not None and not flags.pop():
+            raise self.deadline.error()
         return [name for (name, _), ok in zip(checks, flags) if not ok]
 
     # the expansion regrow: doubled, at least MIN_CAP, at most MAX_CAP
@@ -712,10 +745,16 @@ class Executor:
         from ..ops import kernels
 
         count = rel.mask.sum()
-        if rel.sharded:
+        flag = self._deadline_flag()
+        if rel.sharded or flag is not None:
             from ..parallel.shard import all_reduce
 
-            count = all_reduce(count, self.mesh, "max")
+            both = all_reduce(torch.stack(
+                [count, count.new_zeros(()) if flag is None else flag]),
+                self.mesh, "max")
+            count, expired = both.tolist()
+            if expired:
+                raise self.deadline.error()
         cap = bucket_count(int(count))
         if cap >= rel.capacity:
             return rel

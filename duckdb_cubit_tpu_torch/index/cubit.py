@@ -14,11 +14,14 @@ Binning:
    bins are refined against the base column (`refine` path).
 
 On a mesh (`parallel/shard.shard_index`) an index holds its table's row
-block: `words` / `cum_words` keep the block's word columns, and `n_words`
-and `capacity` are the block's, so every `query_*` returns the block's
-bits.  The host bin counts stay global: `count_eq`, `count_isin` and
-`count_range`, which plans read, give the whole table's counts on every
-rank, never a count of the local words.
+block: `words` / `cum_words` keep the block's word columns, `n_words` and
+`capacity` are the block's and `row_offset` is the global row of its first
+bit, so every `query_*` returns the block's bits.  The host bin counts stay
+global: `count_eq`, `count_isin` and `count_range`, which plans read, give
+the whole table's counts on every rank, never a count of the local words.
+Buffered deltas name global rows; `merge` flips the bits of the block's
+rows alone and counts every row's delta, so every rank, given the same
+deltas, keeps the same counts.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ class CubitIndex:
         self.name = name
         self.capacity = capacity
         self.n_words = bm.num_words(capacity)
+        # the global row of bit 0 (a row block's on a mesh)
+        self.row_offset = 0
         self.n_bins = n_bins
         # For edge-binned indexes, bin b covers values in [edges[b], edges[b+1]).
         self.bin_edges = bin_edges
@@ -274,13 +279,16 @@ class CubitIndex:
         rows = np.array([p[0] for p in self._pending], dtype=np.int64)
         olds = np.array([p[1] for p in self._pending], dtype=np.int64)
         news = np.array([p[2] for p in self._pending], dtype=np.int64)
-        word = rows >> 5
         bit = (np.uint32(1) << (rows & 31).astype(np.uint32))
+        # the bits of this index's rows alone (all of them but on a mesh)
+        local = rows - self.row_offset
+        inside = (local >= 0) & (local < self.capacity)
+        word = local >> 5
         flat_dim = self.n_bins * self.n_words
         # accumulate the flip-set host-side, apply with one device XOR pass
         delta_np = np.zeros(flat_dim, np.uint32)
         for bins in (olds, news):
-            live = bins >= 0
+            live = (bins >= 0) & inside
             if live.any():
                 np.bitwise_xor.at(
                     delta_np, bins[live] * self.n_words + word[live], bit[live])

@@ -40,6 +40,13 @@ Execution (`plan/physical.py`, `exec/executor.py`):
   compaction count with MAX;
 - `Executor.execute` returns a replicated relation on every rank.
 
+Changes (`storage/dml.py`): every rank runs each statement with the same
+global row ids and values, writes the rows of its own block and makes the
+same change to the global host state; a CUBIT index merges the bits of its
+block's rows and counts every row's delta.  An append that grows a table's
+capacity places it anew (`block_bounds` of the new capacity): each rank
+cuts its block from the host mirrors and rebuilds the indexes over them.
+
 The source catalog is best a CPU load (`load_catalog(sf, device="cpu")`):
 each rank then copies only its blocks to its device.
 """
@@ -67,6 +74,16 @@ def is_shardable(capacity: int, n: int) -> bool:
     return capacity % (32 * n) == 0
 
 
+def block_bounds(capacity: int, mesh: Mesh) -> tuple[int, int, bool]:
+    """This rank's (block capacity, first global row, sharded) for a table
+    of `capacity` rows: its row block when the capacity divides
+    (`is_shardable`), else the whole table."""
+    if is_shardable(capacity, mesh.size):
+        block = capacity // mesh.size
+        return block, mesh.rank * block, True
+    return capacity, 0, False
+
+
 def _place(x: torch.Tensor | None, device) -> torch.Tensor | None:
     """A contiguous copy of its own on `device` (a block never keeps the
     source tensor alive)."""
@@ -90,6 +107,7 @@ def shard_index(ix: CubitIndex, mesh: Mesh, sharded: bool) -> CubitIndex:
             out.cum_words = _place(ix.cum_words[:, lo:lo + w], mesh.device)
         out.n_words = w
         out.capacity = ix.capacity // mesh.size
+        out.row_offset = lo * 32
     else:
         out.words = _place(ix.words, mesh.device)
         out.cum_words = _place(ix.cum_words, mesh.device)
@@ -109,10 +127,7 @@ def shard_table(table: Table, mesh: Mesh) -> Table:
     capacity divides (`is_shardable`), else the whole table."""
     if table.sharded:
         raise ValueError(f"table {table.name} is already a row block")
-    n = mesh.size
-    sharded = is_shardable(table.capacity, n)
-    block = table.capacity // n if sharded else table.capacity
-    lo = mesh.rank * block if sharded else 0
+    block, lo, sharded = block_bounds(table.capacity, mesh)
 
     def place(x):
         return None if x is None else _place(x[lo:lo + block], mesh.device)
@@ -140,7 +155,8 @@ def shard_table(table: Table, mesh: Mesh) -> Table:
     t.device = mesh.device
     t.sharded = sharded
     t.row_offset = lo
-    t.blocks = n if sharded else 1
+    t.blocks = mesh.size if sharded else 1
+    t.mesh = mesh
     t.uid = next(Table._UIDS)
     return t
 
@@ -239,7 +255,7 @@ def gather_table(table: Table, mesh: Mesh) -> Table:
     t.indexes, t.pk_indexes = {}, {}
     t.capacity = table.global_capacity
     t.device = torch.device("cpu")
-    t.sharded, t.row_offset, t.blocks = False, 0, 1
+    t.sharded, t.row_offset, t.blocks, t.mesh = False, 0, 1, None
     return t
 
 

@@ -9,7 +9,8 @@ predicate through the query path (`_match_rows`); BEGIN / COMMIT /
 ROLLBACK go to the connection's snapshot transactions (`api.py`).  EXPLAIN
 ANALYZE runs the optimized plan once with the profiler and appends each
 operator's milliseconds and rows; PRAGMA enable_verification /
-disable_verification set the session's verification.
+disable_verification set the session's verification.  On a mesh every rank
+runs each statement, with the same global row ids (`storage/dml.py`).
 """
 
 from __future__ import annotations
@@ -99,12 +100,14 @@ def _literal_value(node, dtype: DataType):
 
 
 def _match_rows(conn, table_name: str, where) -> np.ndarray:
-    """The host row ids a WHERE predicate selects (live rows only).  The
-    predicate runs through the same TableScan / expression path as queries,
-    so DML predicate semantics are exactly query semantics."""
-    table = conn.catalog.table(table_name)
+    """The global host row ids a WHERE predicate selects (live rows only),
+    the same on every rank of a mesh.  The predicate runs through the same
+    TableScan / expression path as queries, so DML predicate semantics are
+    exactly query semantics; the executor returns a replicated relation, so
+    its mask is the whole table's.  Without a WHERE the live rows are read
+    from `num_rows` and the (gathered) deleted mask."""
     if where is None:
-        return np.nonzero(table.row_mask().cpu().numpy())[0]
+        return dml.live_row_ids(conn.catalog.table(table_name))
     expr = conn.binder.bind_table_expr(table_name, where)
     rel = conn.executor.execute(TableScan(table_name, filters=[expr]),
                                 optimize=False, verify=False)
@@ -370,18 +373,10 @@ _HANDLERS = {A.CreateTable: _create_table, A.CreateTableAs: _create_table_as,
              A.ExplainStmt: _explain, A.PragmaStmt: _pragma}
 
 
-# statements that change rows in place: no mesh form yet (ROADMAP 14c)
-_NOT_ON_MESH = {A.Insert: "INSERT", A.Delete: "DELETE", A.Update: "UPDATE",
-                A.TransactionStmt: "a transaction"}
-
 
 def execute_statement(conn, stmt):
     """Execute a non-SELECT statement; -> (status string, rows)."""
     handler = _HANDLERS.get(type(stmt))
     if handler is None:
         raise StatementError(f"unhandled statement {type(stmt).__name__}")
-    if conn.mesh is not None and type(stmt) in _NOT_ON_MESH:
-        from ..api import mesh_unsupported
-
-        mesh_unsupported(_NOT_ON_MESH[type(stmt)])
     return handler(conn, stmt)

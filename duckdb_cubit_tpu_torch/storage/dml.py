@@ -20,6 +20,17 @@ leaves no state derived from the old values: the column's sortedness is
 reset, and each PK index holding a value lut of the column is replaced by
 one without it (copy-on-write: a transaction snapshot keeps the old index
 with luts that match its data).
+
+On a mesh (`parallel/shard.py`) a table is a row block, and every rank runs
+the same call with the same global row ids and values.  Each rank writes
+its device `data`, `nulls` and `deleted` only at the rows of its block,
+shifted to local positions; every rank makes the same change to the global
+host state (host mirrors, `num_rows`, `version`, zone maps, domains,
+dictionaries, CUBIT bin counts, PK luts), so every later plan decision reads
+the same values on every rank.  An append that grows the capacity moves
+every block's bounds: each rank cuts its new block of every column, NULL
+mask and `deleted` from the global host mirrors (and the gathered deleted
+mask), and rebuilds each index over the whole column and keeps its block.
 """
 
 from __future__ import annotations
@@ -37,15 +48,6 @@ class DmlError(RuntimeError):
     pass
 
 
-def _refuse_block(table: Table):
-    """A row block of a table on a mesh holds a part of the rows: changing
-    it in place has no mesh form yet."""
-    if table.sharded:
-        raise NotImplementedError(
-            f"DML on {table.name}, a table sharded over a mesh, is not "
-            f"supported yet (ROADMAP item 14c)")
-
-
 def _np_dtype(t: torch.Tensor) -> np.dtype:
     return np.dtype(str(t.dtype).removeprefix("torch."))
 
@@ -55,9 +57,19 @@ def _host(col, num_rows: int) -> np.ndarray:
             else col.data[:num_rows].cpu().numpy())
 
 
-def _host_at(col, row_ids: np.ndarray, rows_dev: torch.Tensor) -> np.ndarray:
+def _host_at(col, row_ids: np.ndarray) -> np.ndarray:
+    # a row block always keeps its host mirror (`shard_table`)
     return (col.host[row_ids] if col.host is not None
-            else col.data[rows_dev].cpu().numpy())
+            else col.data[torch.as_tensor(row_ids, device=col.data.device)]
+            .cpu().numpy())
+
+
+def _local_rows(table: Table, row_ids: np.ndarray):
+    """The global `row_ids` that fall in this table's block: (their local
+    positions, on the table's device; which of `row_ids` they are)."""
+    local = row_ids - table.row_offset
+    keep = (local >= 0) & (local < table.capacity)
+    return torch.as_tensor(local[keep], device=table.device), keep
 
 
 def _ensure_deleted_mask(table: Table):
@@ -66,17 +78,76 @@ def _ensure_deleted_mask(table: Table):
                                     device=table.device)
 
 
+def global_deleted(table: Table) -> np.ndarray | None:
+    """The whole table's deleted mask on the host, None when no row was
+    ever deleted.  Of a row block it is gathered over the mesh: a
+    collective, which every rank must reach."""
+    if table.deleted is None:
+        return None
+    if not table.sharded:
+        return table.deleted.cpu().numpy()
+    from ..parallel.shard import all_gather_rows
+
+    return all_gather_rows(table.deleted, table.mesh).cpu().numpy()
+
+
+def live_row_ids(table: Table) -> np.ndarray:
+    """The global ids of the live rows, the same on every rank."""
+    deleted = global_deleted(table)
+    live = np.ones(table.num_rows, bool)
+    if deleted is not None:
+        live &= ~deleted[:table.num_rows]
+    return np.nonzero(live)[0]
+
+
+def _block_from_host(host: np.ndarray, dtype, num_rows: int, capacity: int,
+                     offset: int, device) -> torch.Tensor:
+    """Rows [offset, offset + capacity) of a whole column, padded past
+    `num_rows` with its last value (masked everywhere)."""
+    out = np.empty(capacity, dtype=dtype)
+    part = host[offset:min(offset + capacity, num_rows)]
+    out[:len(part)] = part
+    out[len(part):] = host[num_rows - 1] if num_rows else 0
+    return torch.as_tensor(out, device=device)
+
+
+def _index_over_host(table: Table, name: str, values: np.ndarray,
+                     n_bins: int, bin_edges) -> CubitIndex:
+    """A CUBIT index built over the whole column's host values, holding
+    this table's block of the words (on a mesh, `shard_index`)."""
+    mesh = table.mesh
+    idx = CubitIndex.build(name, values, table.global_capacity,
+                           table.num_rows, n_bins, bin_edges=bin_edges,
+                           device="cpu" if mesh is not None
+                           else table.device)
+    if mesh is None:
+        return idx
+    from ..parallel.shard import shard_index
+
+    return shard_index(idx, mesh, table.sharded)
+
+
 def append_rows(table: Table, rows: dict[str, np.ndarray],
                 nulls: dict[str, np.ndarray] | None = None) -> int:
     """Append host rows; returns the first new row id.
 
     `nulls[col]` marks the NULL slots of the appended rows."""
-    _refuse_block(table)
     n_new = len(next(iter(rows.values())))
     first = table.num_rows
     new_count = first + n_new
-    grow = new_count > table.capacity
-    new_capacity = pad_count(new_count) if grow else table.capacity
+    grow = new_count > table.global_capacity
+    # on a mesh a grown table is placed anew: each rank's block of the new
+    # capacity, cut from the global host state
+    regrown = grow and table.mesh is not None
+    if regrown:
+        from ..parallel.shard import block_bounds
+
+        old_deleted = global_deleted(table)
+        new_global = pad_count(new_count)
+        capacity, offset, sharded = block_bounds(new_global, table.mesh)
+    else:
+        capacity = pad_count(new_count) if grow else table.capacity
+        offset = table.row_offset
     dev = table.device
     remapped_dict_cols = []
     for name, col in table.columns.items():
@@ -126,14 +197,22 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
             host_new = vals_np.astype(_np_dtype(col.data))
         if col.host is not None:
             col.host = np.concatenate([col.host, host_new])
-        data = col.data
-        if grow:
-            data = torch.cat([data, data[-1:].expand(
-                new_capacity - table.capacity)])
+        if regrown:
+            col.data = _block_from_host(col.host, _np_dtype(col.data),
+                                        new_count, capacity, offset, dev)
         else:
-            data = data.clone()
-        data[first:new_count] = torch.as_tensor(host_new, device=dev)
-        col.data = data
+            data = col.data
+            if grow:
+                data = torch.cat([data, data[-1:].expand(
+                    capacity - table.capacity)])
+            else:
+                data = data.clone()
+            # the new rows that fall in this block
+            lo, hi = max(first, offset), min(new_count, offset + capacity)
+            if lo < hi:
+                data[lo - offset:hi - offset] = torch.as_tensor(
+                    host_new[lo - first:hi - first], device=dev)
+            col.data = data
         # the per-column NULL mask, extended and refreshed
         new_nulls = None if nulls is None else nulls.get(name)
         if new_nulls is not None and new_nulls.any() or \
@@ -144,7 +223,7 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
             nh[:first] = old_h[:first]
             if new_nulls is not None:
                 nh[first:new_count] = new_nulls
-            col.set_nulls(nh, new_capacity)
+            col.set_nulls(nh, capacity, offset)
         col.is_sorted = False
         # index deltas (not for remapped dictionary columns, whose bins live
         # in the old code space: rebuilt below)
@@ -153,19 +232,26 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
             for i in range(n_new):
                 idx.insert(first + i, host_new[i])
     table.num_rows = new_count
-    if table.deleted is not None and grow:
+    if regrown:
+        deleted = np.zeros(new_global, bool)
+        if old_deleted is not None:
+            deleted[:len(old_deleted)] = old_deleted
+        table.deleted = None if old_deleted is None else torch.as_tensor(
+            deleted[offset:offset + capacity], device=dev)
+        table.capacity, table.row_offset = capacity, offset
+        table.sharded = sharded
+        table.blocks = table.mesh.size if sharded else 1
+    elif table.deleted is not None and grow:
         table.deleted = torch.cat([table.deleted, torch.zeros(
-            new_capacity - table.capacity, dtype=torch.bool, device=dev)])
+            capacity - table.capacity, dtype=torch.bool, device=dev)])
     if grow:
         # a new capacity changes the bitmap word counts: rebuild
+        table.capacity = capacity
         for name, idx in list(table.indexes.items()):
             host = _host(table.columns[name], new_count)
-            table.indexes[name] = CubitIndex.build(
-                name, host if idx.bin_edges is not None
-                else host.astype(np.int32),
-                new_capacity, new_count, idx.n_bins, bin_edges=idx.bin_edges,
-                device=dev)
-        table.capacity = new_capacity
+            table.indexes[name] = _index_over_host(
+                table, name, host if idx.bin_edges is not None
+                else host.astype(np.int32), idx.n_bins, idx.bin_edges)
     else:
         for idx in table.indexes.values():
             if idx.pending_updates:
@@ -174,9 +260,9 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
     for name in remapped_dict_cols:
         if name in table.indexes:
             col = table.columns[name]
-            table.indexes[name] = CubitIndex.build(
-                name, col.host.astype(np.int32), table.capacity,
-                table.num_rows, len(col.dictionary), device=dev)
+            table.indexes[name] = _index_over_host(
+                table, name, col.host.astype(np.int32), len(col.dictionary),
+                None)
     # PK indexes are rebuilt (a cheap host build), dropping the value luts
     # cached on the old index
     for cname in list(table.pk_indexes):
@@ -220,16 +306,14 @@ def _refresh_stats(table: Table, columns=None):
 def delete_rows(table: Table, row_ids: np.ndarray):
     """Mark rows deleted; each CUBIT index drops their bits (one merge per
     index)."""
-    _refuse_block(table)
     _ensure_deleted_mask(table)
     row_ids = np.asarray(row_ids, dtype=np.int64)
-    rows_dev = torch.as_tensor(row_ids, device=table.device)
+    local, _ = _local_rows(table, row_ids)
     deleted = table.deleted.clone()
-    deleted[rows_dev] = True
+    deleted[local] = True
     table.deleted = deleted
     for name, idx in table.indexes.items():
-        idx.delete_many(row_ids, _host_at(table.columns[name], row_ids,
-                                          rows_dev))
+        idx.delete_many(row_ids, _host_at(table.columns[name], row_ids))
         idx.merge()
     table.version += 1
 
@@ -238,13 +322,11 @@ def update_column(table: Table, column: str, row_ids: np.ndarray,
                   new_values: np.ndarray, new_nulls: np.ndarray | None = None):
     """Point updates of one column (CUBIT's update-conscious path).
     `new_nulls` marks the rows set to NULL."""
-    _refuse_block(table)
     col = table.columns[column]
     if col.dictionary is not None:
         raise DmlError("VARCHAR update requires re-encoding (not in round 1)")
     row_ids = np.asarray(row_ids, dtype=np.int64)
-    rows_dev = torch.as_tensor(row_ids, device=table.device)
-    old = _host_at(col, row_ids, rows_dev)
+    old = _host_at(col, row_ids)
     new_values = np.asarray(new_values)
     idx = table.indexes.get(column)
     if idx is not None and len(row_ids):
@@ -265,8 +347,9 @@ def update_column(table: Table, column: str, row_ids: np.ndarray,
                 col.host = col.host.astype(np.int64)
             dt = np.dtype(np.int64)
     new_host = new_values.astype(dt)
+    local, keep = _local_rows(table, row_ids)
     data = col.data.clone()
-    data[rows_dev] = torch.as_tensor(new_host, device=table.device)
+    data[local] = torch.as_tensor(new_host[keep], device=table.device)
     col.data = data
     if col.host is not None:
         # copy-on-write so catalog snapshots (transactions) stay consistent
@@ -277,7 +360,7 @@ def update_column(table: Table, column: str, row_ids: np.ndarray,
               if col.nulls_host is not None
               else np.zeros(table.num_rows, bool))
         nh[row_ids] = False if new_nulls is None else new_nulls
-        col.set_nulls(nh, table.capacity)
+        col.set_nulls(nh, table.capacity, table.row_offset)
     # the new values need not keep the column sorted
     col.is_sorted = False
     if idx is not None:

@@ -14,6 +14,13 @@ checkpoint):
    redo record);
  - `open_database(path, device=...)` loads the checkpoint onto the device,
    rebuilds the indexes, then replays the log through the ordinary SQL path.
+
+On a mesh every rank runs `checkpoint` and rank 0 alone writes the files,
+in the single-device format.  The host mirrors, NULL masks and index, PK
+and unique-key definitions are global on every rank; the deleted masks,
+which only the row blocks hold, are gathered first.  A mesh reopens a
+directory as `Connection(open_database(path, device="cpu").catalog,
+device=..., mesh=mesh)`.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import numpy as np
 import torch
 
 from ..types import DataType, TypeId
-from .dml import _host
+from .dml import _host, global_deleted
 from .table import Catalog, from_numpy
 
 _MAGIC = "duckdb_cubit_tpu-v1"
@@ -43,13 +50,32 @@ def _ingestible(arr: np.ndarray) -> np.ndarray:
 def checkpoint(conn, path: str) -> None:
     """Serialize the connection's catalog; truncates the write-ahead log.
     Deleted rows are dropped from the image (row ids shift; relations are
-    unordered and the PK luts are rebuilt on open).  A catalog on a mesh
-    has no checkpoint yet (ROADMAP item 14c)."""
-    if getattr(conn.catalog, "mesh", None) is not None:
-        raise NotImplementedError("a checkpoint on a mesh is not supported "
-                                  "yet (ROADMAP item 14c)")
-    os.makedirs(path, exist_ok=True)
+    unordered and the PK luts are rebuilt on open).  On a mesh every rank
+    gathers the deleted masks, rank 0 writes, and the ranks meet after it:
+    none returns before the files are complete, and all raise if rank 0's
+    write failed."""
     cat = conn.catalog
+    # collectives first, on every rank
+    deleted = {tname: global_deleted(t) for tname, t in cat.tables.items()}
+    error = None
+    if conn.writes_files:
+        try:
+            _write_checkpoint(cat, deleted, path)
+        except Exception as e:
+            error = e
+    mesh = conn.mesh
+    if mesh is not None:
+        from ..parallel.shard import all_ok
+
+        ok = all_ok(torch.tensor([error is None], device=mesh.device), mesh)
+        if error is None and not bool(ok[0]):
+            raise RuntimeError(f"the checkpoint of {path} failed on rank 0")
+    if error is not None:
+        raise error
+
+
+def _write_checkpoint(cat, deleted: dict, path: str) -> None:
+    os.makedirs(path, exist_ok=True)
     blobs: dict[str, np.ndarray] = {}
     manifest: dict = {"magic": _MAGIC, "tables": {},
                       "foreign_keys": cat.foreign_keys}
@@ -57,8 +83,8 @@ def checkpoint(conn, path: str) -> None:
         cols = {}
         live = None
         num_rows = t.num_rows
-        if t.deleted is not None:
-            live = ~t.deleted[:t.num_rows].cpu().numpy()
+        if deleted[tname] is not None:
+            live = ~deleted[tname][:t.num_rows]
             num_rows = int(live.sum())
         for cname, c in t.columns.items():
             key = f"{tname}.{cname}"

@@ -56,12 +56,15 @@ class Column:
     # integer key columns)
     is_sorted: bool = False
 
-    def set_nulls(self, nulls_host: np.ndarray, capacity: int):
-        """Publish a per-row NULL mask (host, unpadded) and its padded
-        device copy, a fresh tensor."""
+    def set_nulls(self, nulls_host: np.ndarray, capacity: int,
+                  row_offset: int = 0):
+        """Publish a per-row NULL mask (host, unpadded, of the whole table)
+        and its padded device copy, a fresh tensor: rows [row_offset,
+        row_offset + capacity) of it (a row block's on a mesh)."""
         self.nulls_host = nulls_host
         padded = np.zeros(capacity, bool)
-        padded[:len(nulls_host)] = nulls_host
+        part = nulls_host[row_offset:row_offset + capacity]
+        padded[:len(part)] = part
         self.nulls = torch.as_tensor(padded, device=self.data.device)
 
     @property
@@ -131,10 +134,13 @@ class Table:
     # (parallel/shard.py): `capacity` and every tensor are the block's,
     # `row_offset` is the global position of its first row and `blocks` the
     # mesh's size; num_rows, zone maps, dictionaries, domains and the host
-    # mirrors stay global
+    # mirrors stay global; `mesh` is the mesh a table placed on one lives
+    # on (sharded or replicated), None elsewhere
     sharded: bool = dataclasses.field(default=False, kw_only=True)
     row_offset: int = dataclasses.field(default=0, kw_only=True)
     blocks: int = dataclasses.field(default=1, kw_only=True)
+    mesh: object = dataclasses.field(default=None, kw_only=True,
+                                     repr=False, compare=False)
 
     _UIDS = itertools.count()
 

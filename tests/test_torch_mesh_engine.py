@@ -176,20 +176,6 @@ def test_verification_legs_on_mesh(ranks, ref):
     assert ver["nation"][0][0][0] == ["0", "5"]
 
 
-@pytest.mark.parametrize("what", ["insert", "delete", "update", "begin",
-                                  "checkpoint", "attach", "dml_on_block",
-                                  "deadline"])
-def test_refused_on_mesh(ranks, what):
-    msgs = [ranks[r]["refusals"][what] for r in range(N_RANKS)]
-    assert all(m is not None and "14c" in m for m in msgs), msgs
-
-
-def test_refusals_leave_the_catalog(ranks):
-    ref_state = replicated(ranks, "refusals")
-    assert ref_state["nation_rows"] == [["1"]]
-    assert ref_state["written"] == []
-
-
 def test_block_dependent_dictionary_refused(ranks):
     """A concat past its dictionary budget builds the dictionary of the
     strings it sees: a block's would differ from rank to rank, so it

@@ -8,9 +8,6 @@ the ranks' results with each other and with the reference's rows.  A query's
 result is (rows as `to_strings` renders them, which columns are DOUBLE).
 """
 
-import os
-import tempfile
-
 import numpy as np
 import torch
 
@@ -19,7 +16,6 @@ from duckdb_cubit_tpu_torch.exec import result as R
 from duckdb_cubit_tpu_torch.exec.executor import Executor
 from duckdb_cubit_tpu_torch.parallel import mesh as M
 from duckdb_cubit_tpu_torch.plan import physical as P
-from duckdb_cubit_tpu_torch.storage import dml
 from duckdb_cubit_tpu_torch.tpch import queries
 from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
 from duckdb_cubit_tpu_torch.types import TypeId
@@ -130,28 +126,8 @@ def case_verification(conn, mesh):
 
 
 def case_refusals(conn, mesh):
-    """DML, transactions, checkpoints, attach and the deadline raise on a
-    mesh, naming ROADMAP item 14c, and leave the catalog as it was."""
+    """A concat past its dictionary budget raises on a mesh."""
     out = {}
-    path = tempfile.mkdtemp(prefix="mesh-refusal-")
-    attempts = {
-        "insert": lambda: conn.sql("INSERT INTO region VALUES "
-                                   "(9, 'X', 'y')"),
-        "delete": lambda: conn.sql("DELETE FROM nation WHERE "
-                                   "n_nationkey = 1"),
-        "update": lambda: conn.sql("UPDATE nation SET n_regionkey = 0"),
-        "begin": lambda: conn.sql("BEGIN"),
-        "checkpoint": lambda: conn.checkpoint(path),
-        "attach": lambda: conn.attach(path),
-        "dml_on_block": lambda: dml.delete_rows(
-            conn.catalog.table("lineitem"), np.array([0])),
-    }
-    for name, run in attempts.items():
-        try:
-            run()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
     try:
         # 1,500 x 1,500 distinct strings: past concat's dictionary budget,
         # where it would build its dictionary from the rows a block holds
@@ -159,17 +135,6 @@ def case_refusals(conn, mesh):
         out["concat_past_budget"] = None
     except NotImplementedError as e:
         out["concat_past_budget"] = str(e)
-    conn.sql("SET query_timeout_s = 5")
-    try:
-        conn.sql(RETURNFLAGS)
-        out["deadline"] = None
-    except NotImplementedError as e:
-        out["deadline"] = str(e)
-    finally:
-        conn.sql("SET query_timeout_s = 0")
-    out["nation_rows"] = conn.sql("SELECT count(*) AS c FROM nation "
-                                  "WHERE n_nationkey = 1").strings()
-    out["written"] = os.listdir(path)
     return out
 
 
