@@ -1,0 +1,16 @@
+"""q6_roofline: the least bytes Q6's plan must move
+(roofline.q6_bytes) over 3.35 TB/s, divided by the device time of every
+kernel, copy and set inside Q6's spans, per execution."""
+
+from tpchbench import roofline, trace
+
+
+def read(rec):
+    if rec.trace is None or rec.db is None or 6 not in rec.params:
+        return None
+    device_s, runs = trace.device_s_in(rec.trace, ("sql:q06",
+                                                   "strings:q06"))
+    if runs == 0 or device_s <= 0:
+        return None
+    return roofline.share_pct(roofline.BYTES[6](rec.db, rec.params[6]),
+                              device_s / runs)
