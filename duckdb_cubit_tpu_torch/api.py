@@ -44,6 +44,7 @@ import threading
 
 import torch
 
+from .exec import profiler as PROF
 from .exec import result as R
 from .exec.executor import Executor
 from .sql import ast as A
@@ -248,10 +249,19 @@ class Connection:
 
     # ------------------------------------------------------------- querying
     def sql(self, query: str, profile: bool = False) -> Result:
+        """Run one statement: a SELECT's rows (rendered on request), or
+        another statement's status.  The whole call is the span `db.sql`
+        (`exec/profiler.py`)."""
+        with PROF.statement(self.executor) as root:
+            return self._sql(query, profile, root)
+
+    def _sql(self, query: str, profile: bool, root) -> Result:
         from .sql import statements
         from .sql.parser import parse_statement
 
-        stmt = parse_statement(query)
+        with PROF.span("db.parse"):
+            stmt = parse_statement(query)
+        root.set(kind=_kind(stmt))
         if isinstance(stmt, A.SelectStmt):
             # the deadline covers a SELECT only: DML and transactions are
             # never cut midway
@@ -262,13 +272,16 @@ class Connection:
                 # over the ranks, at its collectives
                 self.executor.deadline = deadline if on_mesh else None
                 try:
-                    rel = self.executor.execute(self.binder.bind(stmt),
-                                                profile=profile)
+                    with PROF.span("db.bind"):
+                        plan = self.binder.bind(stmt)
+                    rel = self.executor.execute(plan, profile=profile)
                     # the result's count is where a long device queue
                     # blocks: read it inside the deadline when one is set
                     if timeout > 0:
-                        rel.count()
-                        self.executor.poll_deadline()
+                        with PROF.wait("result"):
+                            rel.count()
+                        with PROF.wait("deadline"):
+                            self.executor.poll_deadline()
                 finally:
                     self.executor.deadline = None
             return Result(rel)
@@ -290,24 +303,27 @@ class Connection:
     def begin(self):
         if self._txn_snapshot is not None:
             raise RuntimeError("transaction already active")
-        self._txn_snapshot = self.catalog.snapshot()
+        with PROF.span("db.begin"):
+            self._txn_snapshot = self.catalog.snapshot()
         self._txn_wal = []
 
     def commit(self):
         if self._txn_snapshot is None:
             raise RuntimeError("no active transaction")
-        if self.db_path and self.writes_files and self._txn_wal:
-            from .storage.persist import wal_append
+        with PROF.span("db.commit"):
+            if self.db_path and self.writes_files and self._txn_wal:
+                from .storage.persist import wal_append
 
-            for q in self._txn_wal:
-                wal_append(self.db_path, q)
+                for q in self._txn_wal:
+                    wal_append(self.db_path, q)
         self._txn_snapshot = None
         self._txn_wal = None
 
     def rollback(self):
         if self._txn_snapshot is None:
             raise RuntimeError("no active transaction")
-        self.catalog.restore(self._txn_snapshot)
+        with PROF.span("db.rollback"):
+            self.catalog.restore(self._txn_snapshot)
         self._txn_snapshot = None
         self._txn_wal = None
 
@@ -356,6 +372,15 @@ class Connection:
             dep_s = f" deps={deps}" if deps else ""
             lines.append(f"  [{i}]{dep_s} {p.describe()}")
         return "\n".join(lines)
+
+
+def _kind(stmt) -> str:
+    """The statement's kind, as the root span `db.sql` records it."""
+    if isinstance(stmt, A.SelectStmt):
+        return "select"
+    if isinstance(stmt, A.TransactionStmt):
+        return stmt.kind
+    return {A.Insert: "insert", A.Delete: "delete"}.get(type(stmt), "other")
 
 
 def connect(sf: float | None = None, *, device="cuda",

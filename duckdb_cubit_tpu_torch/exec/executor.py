@@ -58,6 +58,7 @@ from ..plan import optimizer as opt
 from ..plan.physical import (ExecContext, PhysicalOperator, RelColumn,
                              Relation)
 from ..types import TypeId
+from . import profiler as PROF
 from .profiler import QueryProfiler
 
 
@@ -210,6 +211,10 @@ class Executor:
         self.external_chunks_skipped = 0
         # stage inputs compacted to their cardinality (one count read each)
         self.compacted_boundaries = 0
+        # prepare-cache lookups that found the plan's decisions, and those
+        # that made them
+        self.prepare_hits = 0
+        self.prepare_misses = 0
         self.plan = None
         # the last profiled run's QueryProfiler (EXPLAIN ANALYZE)
         self.profiler = None
@@ -237,7 +242,8 @@ class Executor:
         # needs its own copy taken BEFORE optimization
         raw_plan = copy_plan(plan) if (verify and optimize) else None
         if optimize:
-            plan = opt.optimize(plan, self.catalog)
+            with PROF.span("db.optimize"):
+                plan = opt.optimize(plan, self.catalog)
         self.plan = plan
         self.profiler = profiler
         if verify:
@@ -281,20 +287,24 @@ class Executor:
         version): a repeated query skips the decisions and the device work
         they cause (index words, the fused kernel's widened and packed
         payload)."""
-        ops = list(plan.walk())
-        key = (plan.signature(), self._catalog_version())
-        prep = Executor._prepare_cache.get(key)
-        if prep is None:
-            plan.prepare(ExecContext(self.catalog, self.config))
-            Executor._cache_put(Executor._prepare_cache, key, [
-                {a: getattr(op, a) for a in Executor._PREP_ATTRS
-                 if hasattr(op, a)}
-                for op in ops])
-        else:
-            Executor._prepare_cache.move_to_end(key)
-            for op, attrs in zip(ops, prep):
-                for a, v in attrs.items():
-                    setattr(op, a, v)
+        with PROF.span("db.prepare") as sp:
+            ops = list(plan.walk())
+            key = (plan.signature(), self._catalog_version())
+            prep = Executor._prepare_cache.get(key)
+            sp.set(hit=prep is not None)
+            if prep is None:
+                self.prepare_misses += 1
+                plan.prepare(ExecContext(self.catalog, self.config))
+                Executor._cache_put(Executor._prepare_cache, key, [
+                    {a: getattr(op, a) for a in Executor._PREP_ATTRS
+                     if hasattr(op, a)}
+                    for op in ops])
+            else:
+                self.prepare_hits += 1
+                Executor._prepare_cache.move_to_end(key)
+                for op, attrs in zip(ops, prep):
+                    for a, v in attrs.items():
+                        setattr(op, a, v)
 
     # ---------------------------------------------------- whole-plan path
     def _execute_eager(self, plan: PhysicalOperator, profiler=None,
@@ -365,11 +375,12 @@ class Executor:
         if flag is not None:
             flags.append(flag == 0)
         flags = torch.stack(flags)
-        if self.mesh is not None:
-            from ..parallel.shard import all_ok
+        with PROF.wait("checks"):
+            if self.mesh is not None:
+                from ..parallel.shard import all_ok
 
-            flags = all_ok(flags, self.mesh)
-        flags = flags.tolist()
+                flags = all_ok(flags, self.mesh)
+            flags = flags.tolist()
         if flag is not None and not flags.pop():
             raise self.deadline.error()
         return [name for (name, _), ok in zip(checks, flags) if not ok]
@@ -677,44 +688,49 @@ class Executor:
     def _run_stage(self, op, keep_aligned: bool = False) -> Relation:
         from ..plan.physical import GroupAggregate, HashJoin
 
-        bounds, bindex = self._find_boundaries(op, keep_aligned)
-        chunk = self._chunk_plan(op, bindex)
-        cfg = self.config
-        if (chunk is None and isinstance(op, GroupAggregate)
-                and cfg is not None
-                and (cfg.force_external or cfg.memory_limit > 0)
-                and any(isinstance(c, HashJoin) for c, _ in bounds)):
-            # an out-of-core candidate blocked only by join boundaries: try
-            # again with probe-partitionable joins fused into this stage
-            # (their build sides stay resident across the chunk passes)
-            b2, bi2 = self._find_boundaries(op, keep_aligned,
-                                            fuse_joins=True)
-            ch2 = self._chunk_plan(op, bi2)
-            if ch2 is not None:
-                bounds, bindex, chunk = b2, bi2, ch2
-        # run ALL sibling boundary stages before the first compaction reads
-        # a count, so the card works through them while the host goes on
-        raw = [self._run_stage(c, keep_aligned=not compactable)
-               for c, compactable in bounds]
-        brels = [self._compact_relation(r) if compactable else r
-                 for (c, compactable), r in zip(bounds, raw)]
-        if chunk is not None:
-            return self._run_stage_chunked(op, bounds, bindex, brels, chunk)
-        failed: list = []
-        for _attempt in range(self.MAX_ATTEMPTS):
-            rel = self._stage_eager(op, bounds, bindex, brels)
-            failed = self._failed_checks(rel.checks)
-            if not failed:
-                rel.checks = []
-                return rel
-            if not self._handle_failed_checks(
-                    failed, self._stage_ops(op, bindex)):
-                raise RuntimeError(f"runtime check failed: {failed}")
-            self.retry_count += 1
-            # host decisions can shift (single-match -> expansion changes
-            # an ancestor's PK-join eligibility): re-resolve the plan
-            self._prepare(self.plan)
-        raise RuntimeError(f"capacity retry limit exceeded: {failed}")
+        with PROF.span("db.stage"):
+            bounds, bindex = self._find_boundaries(op, keep_aligned)
+            chunk = self._chunk_plan(op, bindex)
+            cfg = self.config
+            if (chunk is None and isinstance(op, GroupAggregate)
+                    and cfg is not None
+                    and (cfg.force_external or cfg.memory_limit > 0)
+                    and any(isinstance(c, HashJoin) for c, _ in bounds)):
+                # an out-of-core candidate blocked only by join boundaries:
+                # try again with probe-partitionable joins fused into this
+                # stage (their build sides stay resident across the chunk
+                # passes)
+                b2, bi2 = self._find_boundaries(op, keep_aligned,
+                                                fuse_joins=True)
+                ch2 = self._chunk_plan(op, bi2)
+                if ch2 is not None:
+                    bounds, bindex, chunk = b2, bi2, ch2
+            # run ALL sibling boundary stages before the first compaction
+            # reads a count, so the card works through them while the host
+            # goes on
+            raw = [self._run_stage(c, keep_aligned=not compactable)
+                   for c, compactable in bounds]
+            brels = [self._compact_relation(r) if compactable else r
+                     for (c, compactable), r in zip(bounds, raw)]
+            if chunk is not None:
+                return self._run_stage_chunked(op, bounds, bindex, brels,
+                                               chunk)
+            failed: list = []
+            for _attempt in range(self.MAX_ATTEMPTS):
+                rel = self._stage_eager(op, bounds, bindex, brels)
+                failed = self._failed_checks(rel.checks)
+                if not failed:
+                    rel.checks = []
+                    return rel
+                if not self._handle_failed_checks(
+                        failed, self._stage_ops(op, bindex)):
+                    raise RuntimeError(f"runtime check failed: {failed}")
+                self.retry_count += 1
+                # host decisions can shift (single-match -> expansion
+                # changes an ancestor's PK-join eligibility): re-resolve
+                # the plan
+                self._prepare(self.plan)
+            raise RuntimeError(f"capacity retry limit exceeded: {failed}")
 
     def _stage_eager(self, root, bounds, bindex, brels,
                      chunk=None) -> Relation:
@@ -746,16 +762,18 @@ class Executor:
 
         count = rel.mask.sum()
         flag = self._deadline_flag()
-        if rel.sharded or flag is not None:
-            from ..parallel.shard import all_reduce
+        with PROF.wait("count"):
+            if rel.sharded or flag is not None:
+                from ..parallel.shard import all_reduce
 
-            both = all_reduce(torch.stack(
-                [count, count.new_zeros(()) if flag is None else flag]),
-                self.mesh, "max")
-            count, expired = both.tolist()
-            if expired:
-                raise self.deadline.error()
-        cap = bucket_count(int(count))
+                both = all_reduce(torch.stack(
+                    [count, count.new_zeros(()) if flag is None else flag]),
+                    self.mesh, "max")
+                count, expired = both.tolist()
+                if expired:
+                    raise self.deadline.error()
+            count = int(count)
+        cap = bucket_count(count)
         if cap >= rel.capacity:
             return rel
         self.compacted_boundaries += 1

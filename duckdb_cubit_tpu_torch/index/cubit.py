@@ -34,6 +34,8 @@ import torch
 
 from ..ops import bitmap as bm
 
+# merges that published buffered deltas (`CubitIndex.merge`)
+merge_count = 0
 
 @dataclasses.dataclass
 class RangeQueryResult:
@@ -274,8 +276,10 @@ class CubitIndex:
         bit are both XOR-with-bit because the bit is known set/unset.  A new
         words tensor is built, so readers of the previous epoch keep theirs.
         """
+        global merge_count
         if not self._pending:
             return self.epoch
+        merge_count += 1
         rows = np.array([p[0] for p in self._pending], dtype=np.int64)
         olds = np.array([p[1] for p in self._pending], dtype=np.int64)
         news = np.array([p[2] for p in self._pending], dtype=np.int64)

@@ -18,6 +18,8 @@ promotion through int64 does implicitly.
 Date parts (`ExtractField`), the per-dictionary string functions
 (`StrMap`, `StrLen`, `Concat`), scalar math (`MathFn`) and `ValidIf` follow
 the same pattern: host work per dictionary entry, device work per row.
+Each host walk over a dictionary is a `db.dict.<expression>` span
+(`exec/profiler.py`) and adds its entries to `dict_entries`.
 """
 
 from __future__ import annotations
@@ -29,8 +31,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..exec import profiler as PROF
 from ..types import (BOOL, DATE, DOUBLE, INT64, VARCHAR, DataType, TypeId,
                      date_to_days, days_to_date, decimal_to_int)
+
+# dictionary entries the host walks visited (LIKE / IN truth tables,
+# substring, the string maps, concat's products)
+dict_entries = 0
 
 
 @dataclasses.dataclass
@@ -396,7 +403,14 @@ class NotOp(Expr):
         return Typed(~t.array & t.valid, BOOL, None, t.valid)
 
 
-def _code_truth_table(col: Typed, match_fn) -> torch.Tensor:
+def _walked(n: int) -> int:
+    """Count `n` dictionary entries walked on the host (`dict_entries`)."""
+    global dict_entries
+    dict_entries += n
+    return n
+
+
+def _code_truth_table(col: Typed, match_fn, expr: str) -> torch.Tensor:
     """Host-evaluate a predicate over the dictionary; gather per row.
 
     Evaluated per call (no cache keyed on dictionary identity, which can
@@ -404,9 +418,10 @@ def _code_truth_table(col: Typed, match_fn) -> torch.Tensor:
     d = col.dictionary
     assert d is not None
     codes = col.array
-    table = torch.as_tensor(np.asarray(match_fn(d), dtype=np.bool_),
-                            device=codes.device)
-    return table[codes.to(torch.int64)]
+    with PROF.dict_walk(expr, _walked(len(d))):
+        table = torch.as_tensor(np.asarray(match_fn(d), dtype=np.bool_),
+                                device=codes.device)
+        return table[codes.to(torch.int64)]
 
 
 @dataclasses.dataclass(eq=False)
@@ -419,7 +434,8 @@ class InList(Expr):
         if ct.dtype.id == TypeId.VARCHAR:
             targets = set(v.encode() if isinstance(v, str) else v for v in self.values)
             return Typed(
-                _code_truth_table(ct, lambda d: np.isin(d, list(targets))),
+                _code_truth_table(ct, lambda d: np.isin(d, list(targets)),
+                                  "InList"),
                 BOOL, None, ct.valid)
         values = self.values
         if ct.dtype.id == TypeId.CHAR1:
@@ -465,7 +481,8 @@ class Like(Expr):
             return np.fromiter((rx.match(s) is not None for s in d),
                                count=len(d), dtype=np.bool_)
 
-        return Typed(_code_truth_table(ct, match), BOOL, None, ct.valid)
+        return Typed(_code_truth_table(ct, match, "Like"), BOOL, None,
+                     ct.valid)
 
 
 @dataclasses.dataclass(eq=False)
@@ -483,11 +500,12 @@ class Substr(Expr):
     def eval(self, ctx):
         ct = self.child.eval(ctx)
         assert ct.dtype.id == TypeId.VARCHAR and ct.dictionary is not None
-        subs = np.array([s[self.start - 1: self.start - 1 + self.length]
-                         for s in ct.dictionary])
-        new_dict, remap = np.unique(subs, return_inverse=True)
-        codes = torch.as_tensor(remap.astype(np.int32),
-                                device=ct.array.device)[_wide(ct.array)]
+        with PROF.dict_walk("Substr", _walked(len(ct.dictionary))):
+            subs = np.array([s[self.start - 1: self.start - 1 + self.length]
+                             for s in ct.dictionary])
+            new_dict, remap = np.unique(subs, return_inverse=True)
+            codes = torch.as_tensor(remap.astype(np.int32),
+                                    device=ct.array.device)[_wide(ct.array)]
         return Typed(codes, VARCHAR, new_dict, ct.valid)
 
 
@@ -695,11 +713,12 @@ class StrMap(Expr):
                          ct.dtype, None, ct.valid)
         assert ct.dtype.id == TypeId.VARCHAR and ct.dictionary is not None, \
             f"{self.op}() needs a dictionary-encoded varchar"
-        mapped = np.array([fn(s) for s in _dict_strs(ct.dictionary)],
-                          dtype="S")
-        new_dict, remap = np.unique(mapped, return_inverse=True)
-        return Typed(_gather_codes(remap.astype(np.int32), ct.array),
-                     VARCHAR, new_dict, ct.valid)
+        with PROF.dict_walk("StrMap", _walked(len(ct.dictionary))):
+            mapped = np.array([fn(s) for s in _dict_strs(ct.dictionary)],
+                              dtype="S")
+            new_dict, remap = np.unique(mapped, return_inverse=True)
+            codes = _gather_codes(remap.astype(np.int32), ct.array)
+        return Typed(codes, VARCHAR, new_dict, ct.valid)
 
 
 @dataclasses.dataclass(eq=False)
@@ -713,9 +732,11 @@ class StrLen(Expr):
             return Typed(torch.ones_like(ct.array, dtype=torch.int64), INT64,
                          None, ct.valid)
         assert ct.dtype.id == TypeId.VARCHAR and ct.dictionary is not None
-        lens = np.array([len(s) for s in _dict_strs(ct.dictionary)],
-                        np.int64)
-        return Typed(_gather_codes(lens, ct.array), INT64, None, ct.valid)
+        with PROF.dict_walk("StrLen", _walked(len(ct.dictionary))):
+            lens = np.array([len(s) for s in _dict_strs(ct.dictionary)],
+                            np.int64)
+            out = _gather_codes(lens, ct.array)
+        return Typed(out, INT64, None, ct.valid)
 
 
 class ExpressionError(ValueError):
@@ -750,8 +771,9 @@ class Concat(Expr):
                     f"entries (budget {self.MAX_DICT}); reduce operand "
                     f"cardinality")
             return self._observed_pairs(lt, rt, ld, rd, lc, rc)
-        pairs = np.array([a + b for a in ld for b in rd], dtype="S")
-        new_dict, remap = np.unique(pairs, return_inverse=True)
+        with PROF.dict_walk("Concat", _walked(len(ld) * len(rd))):
+            pairs = np.array([a + b for a in ld for b in rd], dtype="S")
+            new_dict, remap = np.unique(pairs, return_inverse=True)
         remap = remap.reshape(len(ld), len(rd)).astype(np.int32)
         if lc is None and rc is None:
             return Typed(int(remap[0, 0]), VARCHAR, new_dict, None)
@@ -772,10 +794,11 @@ class Concat(Expr):
             raise ExpressionError(
                 f"concat produces {len(upairs)} distinct strings "
                 f"(budget {self.MAX_DICT})")
-        entries = np.array(
-            [ld[int(p) // len(rd)] + rd[int(p) % len(rd)] for p in upairs],
-            dtype="S")
-        new_dict, remap = np.unique(entries, return_inverse=True)
+        with PROF.dict_walk("Concat", _walked(len(upairs))):
+            entries = np.array(
+                [ld[int(p) // len(rd)] + rd[int(p) % len(rd)]
+                 for p in upairs], dtype="S")
+            new_dict, remap = np.unique(entries, return_inverse=True)
         codes = torch.as_tensor(remap.astype(np.int32)[inverse],
                                 device=lc.device)
         return Typed(codes, VARCHAR, new_dict, and_valid(lt.valid, rt.valid))

@@ -36,6 +36,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..exec import profiler as PROF
 from ..ops import bitmap as bm
 from ..ops import fused_scan as fs
 from ..ops import groupby as groupby_ops
@@ -163,17 +164,16 @@ class PhysicalOperator:
         key = id(self)
         if key in ctx._cache:
             return ctx._cache[key]
-        if ctx.profiler is not None:
-            with ctx.profiler.operator(self):
-                out = self._execute(ctx)
+        qp = ctx.profiler
+        with PROF.operator(self, qp):
+            out = self._execute(ctx)
+            if qp is not None:
                 # wait for the card, so that an operator's time holds its
                 # own kernels (and its children's) and no one else's
                 if out.mask.is_cuda:
                     torch.cuda.synchronize(out.mask.device)
-                if ctx.profiler.measure_cardinality:
-                    ctx.profiler.record_cardinality(self, out.count())
-        else:
-            out = self._execute(ctx)
+                if qp.measure_cardinality:
+                    qp.record_cardinality(self, out.count())
         ctx._cache[key] = out
         return out
 

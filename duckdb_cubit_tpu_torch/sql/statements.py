@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..exec import profiler as PROF
 from ..exec import result as R
 from ..index.cubit import CubitIndex
 from ..index.pk import DirectPKIndex
@@ -106,12 +107,14 @@ def _match_rows(conn, table_name: str, where) -> np.ndarray:
     exactly query semantics; the executor returns a replicated relation, so
     its mask is the whole table's.  Without a WHERE the live rows are read
     from `num_rows` and the (gathered) deleted mask."""
-    if where is None:
-        return dml.live_row_ids(conn.catalog.table(table_name))
-    expr = conn.binder.bind_table_expr(table_name, where)
-    rel = conn.executor.execute(TableScan(table_name, filters=[expr]),
-                                optimize=False, verify=False)
-    return np.nonzero(rel.mask.cpu().numpy())[0]
+    with PROF.span("db.dml.match"):
+        if where is None:
+            return dml.live_row_ids(conn.catalog.table(table_name))
+        with PROF.span("db.bind"):
+            expr = conn.binder.bind_table_expr(table_name, where)
+        rel = conn.executor.execute(TableScan(table_name, filters=[expr]),
+                                    optimize=False, verify=False)
+        return np.nonzero(rel.mask.cpu().numpy())[0]
 
 
 def _host_values(arr, rowids: np.ndarray) -> np.ndarray:
@@ -233,19 +236,20 @@ def _insert(conn, stmt):
     if set(cols) != set(table.columns.keys()):
         raise StatementError("INSERT must provide every column")
     rows, nulls = {}, {}
-    for pos, cname in enumerate(cols):
-        dtype = table.columns[cname].dtype
-        vals = [_literal_value(r[pos], dtype) for r in stmt.rows]
-        nmask = np.array([v is None for v in vals])
-        if nmask.any():
-            # a placeholder under each NULL (masked everywhere)
-            filler = b"" if dtype.id == TypeId.VARCHAR else 0
-            vals = [filler if v is None else v for v in vals]
-            nulls[cname] = nmask
-        if dtype.id == TypeId.VARCHAR:
-            rows[cname] = np.array(vals, dtype="S")
-        else:
-            rows[cname] = np.array(vals, dtype=dtype.np_dtype)
+    with PROF.span("db.insert.literals"):
+        for pos, cname in enumerate(cols):
+            dtype = table.columns[cname].dtype
+            vals = [_literal_value(r[pos], dtype) for r in stmt.rows]
+            nmask = np.array([v is None for v in vals])
+            if nmask.any():
+                # a placeholder under each NULL (masked everywhere)
+                filler = b"" if dtype.id == TypeId.VARCHAR else 0
+                vals = [filler if v is None else v for v in vals]
+                nulls[cname] = nmask
+            if dtype.id == TypeId.VARCHAR:
+                rows[cname] = np.array(vals, dtype="S")
+            else:
+                rows[cname] = np.array(vals, dtype=dtype.np_dtype)
     first = dml.append_rows(table, rows, nulls=nulls or None)
     return f"INSERT {len(stmt.rows)} (first rowid {first})", []
 
@@ -254,7 +258,8 @@ def _delete(conn, stmt):
     table = conn.catalog.table(stmt.table)
     rowids = _match_rows(conn, stmt.table, stmt.where)
     if len(rowids):
-        dml.delete_rows(table, rowids)
+        with PROF.span("db.dml.delete"):
+            dml.delete_rows(table, rowids)
     else:
         table.version += 1
     return f"DELETE {len(rowids)}", []
@@ -281,7 +286,9 @@ def _update(conn, stmt):
             if rel is None:
                 rel = conn.executor.execute(TableScan(stmt.table),
                                             optimize=False, verify=False)
-            t = rel.evaluate(conn.binder.bind_table_expr(stmt.table, expr))
+            with PROF.span("db.bind"):
+                bound = conn.binder.bind_table_expr(stmt.table, expr)
+            t = rel.evaluate(bound)
             vals = _cast_values(t, dtype, rowids)
             nulls = None if t.valid is None else \
                 ~_host_values(t.valid, rowids).astype(bool)

@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..exec import profiler as PROF
 from ..index.cubit import CubitIndex
 from ..index.pk import DirectPKIndex
 from ..types import TypeId
@@ -46,6 +47,10 @@ from .table import Table, _build_zone_map, _int_domain, pad_count
 
 class DmlError(RuntimeError):
     pass
+
+
+# rows appended, deleted or updated
+rows_written = 0
 
 
 def _np_dtype(t: torch.Tensor) -> np.dtype:
@@ -131,8 +136,15 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
                 nulls: dict[str, np.ndarray] | None = None) -> int:
     """Append host rows; returns the first new row id.
 
-    `nulls[col]` marks the NULL slots of the appended rows."""
+    `nulls[col]` marks the NULL slots of the appended rows.  Its phases
+    are spans (`exec/profiler.py`): `db.dml.encode` (values to storage
+    codes; a VARCHAR column with new strings gets the merged dictionary and
+    its stored codes remapped), `db.dml.device` (each column's new host
+    mirror, device tensor and NULL mask), `db.dml.cubit` (CUBIT deltas,
+    merges and rebuilds), `db.dml.pk` and `db.dml.stats`."""
+    global rows_written
     n_new = len(next(iter(rows.values())))
+    rows_written += n_new
     first = table.num_rows
     new_count = first + n_new
     grow = new_count > table.global_capacity
@@ -151,86 +163,94 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
     dev = table.device
     remapped_dict_cols = []
     for name, col in table.columns.items():
-        vals = rows[name]
-        if col.dictionary is not None:
-            # codes are order-preserving (ordered string predicates, LIKE
-            # truth tables and CUBIT dictionary bins rely on it), so new
-            # strings re-encode: the merged sorted dictionary, and one
-            # device gather remaps the stored codes
-            vals_b = np.array([v if isinstance(v, bytes) else str(v).encode()
-                               for v in np.asarray(vals)], dtype="S")
-            old_dict = col.dictionary
-            width = max(old_dict.dtype.itemsize, vals_b.dtype.itemsize, 1)
-            merged = np.unique(np.concatenate(
-                [old_dict.astype(f"S{width}"), vals_b.astype(f"S{width}")]))
-            if len(merged) != len(old_dict):
-                old_to_new = np.searchsorted(
-                    merged, old_dict.astype(f"S{width}")).astype(np.int32)
-                if len(old_to_new):
-                    col.data = torch.as_tensor(old_to_new, device=dev)[
-                        col.data.to(torch.int64)]
+        with PROF.span("db.dml.encode"):
+            vals = rows[name]
+            if col.dictionary is not None:
+                # codes are order-preserving (ordered string predicates, LIKE
+                # truth tables and CUBIT dictionary bins rely on it), so new
+                # strings re-encode: the merged sorted dictionary, and one
+                # device gather remaps the stored codes
+                vals_b = np.array([v if isinstance(v, bytes)
+                                   else str(v).encode()
+                                   for v in np.asarray(vals)], dtype="S")
+                old_dict = col.dictionary
+                width = max(old_dict.dtype.itemsize, vals_b.dtype.itemsize,
+                            1)
+                merged = np.unique(np.concatenate(
+                    [old_dict.astype(f"S{width}"),
+                     vals_b.astype(f"S{width}")]))
+                if len(merged) != len(old_dict):
+                    old_to_new = np.searchsorted(
+                        merged, old_dict.astype(f"S{width}")).astype(np.int32)
+                    if len(old_to_new):
+                        col.data = torch.as_tensor(old_to_new, device=dev)[
+                            col.data.to(torch.int64)]
+                        if col.host is not None:
+                            col.host = old_to_new[col.host]
+                    col.dictionary = merged
+                    remapped_dict_cols.append(name)
+                codes = np.searchsorted(
+                    merged, vals_b.astype(f"S{width}")).astype(np.int32)
+                dt = _np_dtype(col.data)
+                if dt.kind == "i" and dt.itemsize < 4 and \
+                        len(merged) >= np.iinfo(dt).max:
+                    col.data = col.data.to(torch.int32)
                     if col.host is not None:
-                        col.host = old_to_new[col.host]
-                col.dictionary = merged
-                remapped_dict_cols.append(name)
-            codes = np.searchsorted(
-                merged, vals_b.astype(f"S{width}")).astype(np.int32)
-            dt = _np_dtype(col.data)
-            if dt.kind == "i" and dt.itemsize < 4 and \
-                    len(merged) >= np.iinfo(dt).max:
-                col.data = col.data.to(torch.int32)
-                if col.host is not None:
-                    col.host = col.host.astype(np.int32)
-            host_new = codes.astype(_np_dtype(col.data))
-        else:
-            vals_np = np.asarray(vals)
-            dt = _np_dtype(col.data)
-            if dt.kind == "i" and dt.itemsize < 8 and vals_np.size:
-                info = np.iinfo(dt)
-                v64 = vals_np.astype(np.int64)
-                if int(v64.max()) >= info.max or int(v64.min()) <= info.min:
-                    # narrowed storage cannot hold the appended values:
-                    # widen the column back
-                    col.data = col.data.to(torch.int64)
-                    if col.host is not None:
-                        col.host = col.host.astype(np.int64)
-            host_new = vals_np.astype(_np_dtype(col.data))
-        if col.host is not None:
-            col.host = np.concatenate([col.host, host_new])
-        if regrown:
-            col.data = _block_from_host(col.host, _np_dtype(col.data),
-                                        new_count, capacity, offset, dev)
-        else:
-            data = col.data
-            if grow:
-                data = torch.cat([data, data[-1:].expand(
-                    capacity - table.capacity)])
+                        col.host = col.host.astype(np.int32)
+                host_new = codes.astype(_np_dtype(col.data))
             else:
-                data = data.clone()
-            # the new rows that fall in this block
-            lo, hi = max(first, offset), min(new_count, offset + capacity)
-            if lo < hi:
-                data[lo - offset:hi - offset] = torch.as_tensor(
-                    host_new[lo - first:hi - first], device=dev)
-            col.data = data
-        # the per-column NULL mask, extended and refreshed
-        new_nulls = None if nulls is None else nulls.get(name)
-        if new_nulls is not None and new_nulls.any() or \
-                col.nulls is not None:
-            old_h = (col.nulls_host if col.nulls_host is not None
-                     else np.zeros(first, bool))
-            nh = np.zeros(new_count, bool)
-            nh[:first] = old_h[:first]
-            if new_nulls is not None:
-                nh[first:new_count] = new_nulls
-            col.set_nulls(nh, capacity, offset)
-        col.is_sorted = False
+                vals_np = np.asarray(vals)
+                dt = _np_dtype(col.data)
+                if dt.kind == "i" and dt.itemsize < 8 and vals_np.size:
+                    info = np.iinfo(dt)
+                    v64 = vals_np.astype(np.int64)
+                    if int(v64.max()) >= info.max or \
+                            int(v64.min()) <= info.min:
+                        # narrowed storage cannot hold the appended values:
+                        # widen the column back
+                        col.data = col.data.to(torch.int64)
+                        if col.host is not None:
+                            col.host = col.host.astype(np.int64)
+                host_new = vals_np.astype(_np_dtype(col.data))
+        with PROF.span("db.dml.device"):
+            if col.host is not None:
+                col.host = np.concatenate([col.host, host_new])
+            if regrown:
+                col.data = _block_from_host(col.host, _np_dtype(col.data),
+                                            new_count, capacity, offset, dev)
+            else:
+                data = col.data
+                if grow:
+                    data = torch.cat([data, data[-1:].expand(
+                        capacity - table.capacity)])
+                else:
+                    data = data.clone()
+                # the new rows that fall in this block
+                lo = max(first, offset)
+                hi = min(new_count, offset + capacity)
+                if lo < hi:
+                    data[lo - offset:hi - offset] = torch.as_tensor(
+                        host_new[lo - first:hi - first], device=dev)
+                col.data = data
+            # the per-column NULL mask, extended and refreshed
+            new_nulls = None if nulls is None else nulls.get(name)
+            if new_nulls is not None and new_nulls.any() or \
+                    col.nulls is not None:
+                old_h = (col.nulls_host if col.nulls_host is not None
+                         else np.zeros(first, bool))
+                nh = np.zeros(new_count, bool)
+                nh[:first] = old_h[:first]
+                if new_nulls is not None:
+                    nh[first:new_count] = new_nulls
+                col.set_nulls(nh, capacity, offset)
+            col.is_sorted = False
         # index deltas (not for remapped dictionary columns, whose bins live
         # in the old code space: rebuilt below)
         idx = table.indexes.get(name)
         if idx is not None and name not in remapped_dict_cols:
-            for i in range(n_new):
-                idx.insert(first + i, host_new[i])
+            with PROF.span("db.dml.cubit"):
+                for i in range(n_new):
+                    idx.insert(first + i, host_new[i])
     table.num_rows = new_count
     if regrown:
         deleted = np.zeros(new_global, bool)
@@ -244,35 +264,38 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
     elif table.deleted is not None and grow:
         table.deleted = torch.cat([table.deleted, torch.zeros(
             capacity - table.capacity, dtype=torch.bool, device=dev)])
-    if grow:
-        # a new capacity changes the bitmap word counts: rebuild
-        table.capacity = capacity
-        for name, idx in list(table.indexes.items()):
-            host = _host(table.columns[name], new_count)
-            table.indexes[name] = _index_over_host(
-                table, name, host if idx.bin_edges is not None
-                else host.astype(np.int32), idx.n_bins, idx.bin_edges)
-    else:
-        for idx in table.indexes.values():
-            if idx.pending_updates:
-                idx.merge()
-    # a dictionary remap moves the code-space bitmap bins: rebuild
-    for name in remapped_dict_cols:
-        if name in table.indexes:
-            col = table.columns[name]
-            table.indexes[name] = _index_over_host(
-                table, name, col.host.astype(np.int32), len(col.dictionary),
-                None)
+    with PROF.span("db.dml.cubit"):
+        if grow:
+            # a new capacity changes the bitmap word counts: rebuild
+            table.capacity = capacity
+            for name, idx in list(table.indexes.items()):
+                host = _host(table.columns[name], new_count)
+                table.indexes[name] = _index_over_host(
+                    table, name, host if idx.bin_edges is not None
+                    else host.astype(np.int32), idx.n_bins, idx.bin_edges)
+        else:
+            for idx in table.indexes.values():
+                if idx.pending_updates:
+                    idx.merge()
+        # a dictionary remap moves the code-space bitmap bins: rebuild
+        for name in remapped_dict_cols:
+            if name in table.indexes:
+                col = table.columns[name]
+                table.indexes[name] = _index_over_host(
+                    table, name, col.host.astype(np.int32),
+                    len(col.dictionary), None)
     # PK indexes are rebuilt (a cheap host build), dropping the value luts
     # cached on the old index
-    for cname in list(table.pk_indexes):
-        pk = DirectPKIndex.build(cname, _host(table.columns[cname],
-                                              new_count),
-                                 new_count, device=dev)
-        if pk is None:
-            raise DmlError(f"append broke PK uniqueness on {cname}")
-        table.pk_indexes[cname] = pk
-    _refresh_stats(table)
+    with PROF.span("db.dml.pk"):
+        for cname in list(table.pk_indexes):
+            pk = DirectPKIndex.build(cname, _host(table.columns[cname],
+                                                  new_count),
+                                     new_count, device=dev)
+            if pk is None:
+                raise DmlError(f"append broke PK uniqueness on {cname}")
+            table.pk_indexes[cname] = pk
+    with PROF.span("db.dml.stats"):
+        _refresh_stats(table)
     table.version += 1
     return first
 
@@ -306,8 +329,10 @@ def _refresh_stats(table: Table, columns=None):
 def delete_rows(table: Table, row_ids: np.ndarray):
     """Mark rows deleted; each CUBIT index drops their bits (one merge per
     index)."""
+    global rows_written
     _ensure_deleted_mask(table)
     row_ids = np.asarray(row_ids, dtype=np.int64)
+    rows_written += len(row_ids)
     local, _ = _local_rows(table, row_ids)
     deleted = table.deleted.clone()
     deleted[local] = True
@@ -322,10 +347,12 @@ def update_column(table: Table, column: str, row_ids: np.ndarray,
                   new_values: np.ndarray, new_nulls: np.ndarray | None = None):
     """Point updates of one column (CUBIT's update-conscious path).
     `new_nulls` marks the rows set to NULL."""
+    global rows_written
     col = table.columns[column]
     if col.dictionary is not None:
         raise DmlError("VARCHAR update requires re-encoding (not in round 1)")
     row_ids = np.asarray(row_ids, dtype=np.int64)
+    rows_written += len(row_ids)
     old = _host_at(col, row_ids)
     new_values = np.asarray(new_values)
     idx = table.indexes.get(column)

@@ -79,20 +79,23 @@ def test_get_query_refuses_unknown_numbers():
         queries.get_query(23)
 
 
-def test_plan_profile_ranges(port_conns):
-    """The per-operator profile of a plan names its operators, its LIKE and
-    its phases, and puts the engine back as it found it."""
-    from duckdb_cubit_tpu_torch.benchmarks import plan_profile
-    from duckdb_cubit_tpu_torch.ops import expressions as E
-    from duckdb_cubit_tpu_torch.plan import physical as P
+def test_in_program_spans_of_q13(port_conns):
+    """Under torch.profiler the engine's own spans name a plan's operators,
+    its LIKE and its phases: q13 runs each of its two group-bys once."""
+    import torch
 
-    execute, like = P.PhysicalOperator.execute, E.Like.eval
-    out = plan_profile.profile_plan(port_conns["generated"], 13, 1)
-    assert {"op:hash_join", "op:group_aggregate", "op:table_scan",
-            "expr:Like", "phase:query", "phase:to_strings",
-            "phase:prepare"} <= set(out["ranges"])
-    assert out["ranges"]["op:group_aggregate"]["calls"] == 2
-    assert P.PhysicalOperator.execute is execute and E.Like.eval is like
+    from duckdb_cubit_tpu_torch.exec import profiler as PROF
+
+    conn = port_conns["generated"]
+    PROF.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        PR.to_strings(queries.run(conn.executor, 13))
+    names = [s[0] for s in PROF.spans()]
+    PROF.reset()
+    assert {"db.op.hash_join", "db.op.group_aggregate", "db.op.table_scan",
+            "db.dict.Like", "db.prepare", "db.format"} <= set(names)
+    assert names.count("db.op.group_aggregate") == 2
 
 
 def test_builders_run_without_retries():

@@ -1,0 +1,10 @@
+"""operator_self_ms: mean host milliseconds per query in the engine's
+`db.op.*` spans, each less the engine's spans nested directly in it (child
+operators, dictionary walks, waits)."""
+
+from tpchbench import spans
+
+
+def read(rec):
+    s = spans.per_run_s(rec, ("db.op.",), "sql:", self_time=True)
+    return None if s is None else 1000.0 * s
