@@ -61,7 +61,7 @@ MAX_SPANS = 2_000_000
 # the engine's counters a statement's root records as deltas
 COUNTERS = ("prepare_hits", "prepare_misses", "k1_launches", "k2_launches",
             "retries", "compacted", "dict_entries", "cubit_merges",
-            "rows_written")
+            "rows_written", "k6_launches")
 
 
 class _State:
@@ -221,13 +221,14 @@ def operator(op, profiler: "QueryProfiler | None" = None):
 
 def _counter_values(executor) -> list[int]:
     from ..index import cubit
-    from ..ops import expressions, fused_scan, probe
+    from ..ops import dict_like, expressions, fused_scan, probe
     from ..storage import dml
 
     return [executor.prepare_hits, executor.prepare_misses,
             fused_scan.launch_count, probe.launch_count,
             executor.retry_count, executor.compacted_boundaries,
-            expressions.dict_entries, cubit.merge_count, dml.rows_written]
+            expressions.dict_entries, cubit.merge_count, dml.rows_written,
+            dict_like.launch_count]
 
 
 class _Statement(_Span):

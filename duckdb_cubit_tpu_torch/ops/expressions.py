@@ -5,9 +5,10 @@ single-table WHERE/SELECT binds to: column refs, literals, exact DECIMAL
 arithmetic (DuckDB's scale rules: add/sub align scales, mul adds scales, div
 promotes to DOUBLE), comparisons (string literals resolve against the
 column's sorted dictionary on the host, then compare int codes on the
-device), three-valued AND/OR/NOT, IN lists, LIKE and substring (over the
-dictionary on the host, then a gather by code on the device), year(date),
-casts, CASE and IS NULL.
+device), three-valued AND/OR/NOT, IN lists, LIKE (matched over the
+dictionary's bytes on the column's device, `ops/dict_like.py`) and
+substring (over the dictionary on the host), each then a gather by code on
+the device, year(date), casts, CASE and IS NULL.
 
 Stored columns are narrowed (int8/int16/int32, `storage/table.py`), and
 torch keeps a narrow tensor's type against a Python scalar (an int8 column
@@ -18,7 +19,7 @@ promotion through int64 does implicitly.
 Date parts (`ExtractField`), the per-dictionary string functions
 (`StrMap`, `StrLen`, `Concat`), scalar math (`MathFn`) and `ValidIf` follow
 the same pattern: host work per dictionary entry, device work per row.
-Each host walk over a dictionary is a `db.dict.<expression>` span
+Each evaluation over a dictionary is a `db.dict.<expression>` span
 (`exec/profiler.py`) and adds its entries to `dict_entries`.
 """
 
@@ -34,9 +35,10 @@ import torch
 from ..exec import profiler as PROF
 from ..types import (BOOL, DATE, DOUBLE, INT64, VARCHAR, DataType, TypeId,
                      date_to_days, days_to_date, decimal_to_int)
+from . import dict_like as DL
 
-# dictionary entries the host walks visited (LIKE / IN truth tables,
-# substring, the string maps, concat's products)
+# dictionary entries evaluated (LIKE on the device; IN truth tables,
+# substring, the string maps and concat's products on the host)
 dict_entries = 0
 
 
@@ -466,23 +468,23 @@ def like_to_regex(pattern: str) -> str:
 
 @dataclasses.dataclass(eq=False)
 class Like(Expr):
-    """LIKE on a dictionary column: the pattern is matched once per
-    dictionary entry on the host, and the rows index that truth table by
-    their codes on the column's device."""
+    """LIKE on a dictionary column: the pattern is matched against every
+    dictionary entry on the column's device (`ops/dict_like.py`: K6 on a
+    card, over the dictionary's device copy), and the rows index that truth
+    table by their codes there.  Computed on every call."""
     child: Expr
     pattern: str
 
     def eval(self, ctx):
         ct = self.child.eval(ctx)
         assert ct.dtype.id == TypeId.VARCHAR, "LIKE requires a varchar column"
-        rx = re.compile(like_to_regex(self.pattern).encode())
-
-        def match(d):
-            return np.fromiter((rx.match(s) is not None for s in d),
-                               count=len(d), dtype=np.bool_)
-
-        return Typed(_code_truth_table(ct, match, "Like"), BOOL, None,
-                     ct.valid)
+        d = ct.dictionary
+        assert d is not None
+        codes = ct.array
+        with PROF.dict_walk("Like", _walked(len(d))):
+            table = DL.like_table(DL.dictionary_bytes(d, codes.device),
+                                  self.pattern)
+            return Typed(table[codes.to(torch.int64)], BOOL, None, ct.valid)
 
 
 @dataclasses.dataclass(eq=False)

@@ -1,13 +1,20 @@
 """LIKE, substring and year(date): the torch port's expressions against the
 JAX package's on the same numpy-seeded columns, on the CPU.
 
-LIKE and substring evaluate over the dictionary on the host and gather by
-code on the device: the truth values, the new codes and the new dictionary
-must equal the reference's.  year(date) must equal the reference's and
-Python's calendar, pre-1970 and leap days included.
+LIKE and substring evaluate over the dictionary and gather by code on the
+device: the truth values, the new codes and the new dictionary must equal
+the reference's.  LIKE's truth table comes from `ops/dict_like.py`, whose
+plain segment matcher (the body CPU tensors take) is also held to Python's
+`re.fullmatch` on seeded random bytes; its device copy of a dictionary
+must go with the dictionary, and a LIKE after an INSERT that merges a new
+string must see it, and after ROLLBACK must not.  year(date) must equal the
+reference's and Python's calendar, pre-1970 and leap days included.
 """
 
 import datetime
+import gc
+import re
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +25,10 @@ from duckdb_cubit_tpu import types as RT
 from duckdb_cubit_tpu.api import connect as ref_connect
 from duckdb_cubit_tpu.ops import expressions as RE
 from duckdb_cubit_tpu_torch import types as PT
-from duckdb_cubit_tpu_torch.api import connect
+from duckdb_cubit_tpu_torch.api import Connection, connect
+from duckdb_cubit_tpu_torch.ops import dict_like as DL
 from duckdb_cubit_tpu_torch.ops import expressions as PE
+from duckdb_cubit_tpu_torch.tpch.load import load_catalog
 
 WORDS = [b"", b"a", b"abc", b"a.c", b"a+c", b"(x)", b"[ab]", b"a^b$",
          b"50%", b"x_y", b"back\\slash", b"green apple", b"forest green",
@@ -49,14 +58,26 @@ def _eval_both(make, dtype_name, dictionary, arr, valid=None):
     return make(RE).eval(rctx), make(PE).eval(pctx)
 
 
-@pytest.mark.parametrize("pattern", [
+PATTERNS = [
     "%", "", "a", "a%", "%c", "a_c", "_", "__", "%.%", "a.c", "a+c", "(x)",
     "[ab]", "a^b$", "50%", "%\\%", "x_y", "%green%", "forest%", "%BRUSHED",
     "PROMO%", "%Customer%Complaints%", "%special%requests%", "ab*", "a|b",
-    "{2}", "%_%"])
-@pytest.mark.parametrize("negated", [False, True])
+    "{2}", "%_%"]
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("negated", [False, True, "table"])
 def test_like_matches_reference(pattern, negated):
+    """`negated` False / True: the port's LIKE / NOT LIKE over coded rows;
+    "table": the plain matcher's truth table over the whole dictionary."""
     codes, valid = _codes()
+    if negated == "table":
+        codes, valid = np.arange(len(DICT), dtype=np.int32), None
+        table = DL.like_table(DL.dictionary_bytes(DICT, "cpu"), pattern)
+        ref, _ = _eval_both(lambda E: E.Col("s").like(pattern), "VARCHAR",
+                            DICT, codes)
+        assert table.numpy().tolist() == np.asarray(ref.array).tolist()
+        return
 
     def make(E):
         e = E.Col("s")
@@ -64,6 +85,79 @@ def test_like_matches_reference(pattern, negated):
     ref, port = _eval_both(make, "VARCHAR", DICT, codes, valid)
     assert (port.array.numpy() == np.asarray(ref.array)).all()
     assert (port.valid.numpy() == np.asarray(ref.valid)).all()
+
+
+# patterns over the random dictionaries' alphabet: `%%`, leading and
+# trailing `_`, repeated segments, a segment in several places
+RANDOM_PATTERNS = ["%", "%%", "", "a", "_", "__", "_a%", "%b_", "_%_",
+                   "%ab%ab%", "%a%a%a%", "a%b%c", "%a_b%", "ab%ba", "abc",
+                   "%_a_%", "c%", "%\\%", "%x%_%", "a\\%", "%ba_%_ab%"]
+
+
+def _random_dictionary(rng, n, w, full):
+    """n entries (duplicates allowed) of at most w bytes over a small
+    alphabet (backslash, `%` and `_` included); `full` draws every length
+    as w, else lengths 0..w (empty entries included)."""
+    alphabet = list(b"abcx\\%_")
+    lengths = np.full(n, w) if full else rng.integers(0, w + 1, n)
+    vals = [bytes(rng.choice(alphabet, k)) for k in lengths]
+    return np.array(vals, dtype=f"S{w}")
+
+
+@pytest.mark.parametrize("n,w,full", [
+    (0, 4, False), (1, 1, True), (1, 6, False), (300, 1, False),
+    (300, 5, True), (300, 7, False), (200, 23, False), (200, 64, True)])
+def test_like_table_matches_fullmatch(n, w, full):
+    """The plain matcher against `re.fullmatch(..., re.DOTALL)` of the
+    pattern's regex on seeded random bytes, patterns longer than the width
+    included."""
+    rng = np.random.default_rng(n * 131 + w)
+    d = _random_dictionary(rng, n, w, full)
+    entries = DL.dictionary_bytes(d, "cpu")
+    assert tuple(entries.shape) == (n, w)
+    for pattern in RANDOM_PATTERNS + ["a" * (w + 1), "%" + "_" * (w + 1),
+                                      "%" + "b" * w + "%"]:
+        rx = re.compile(PE.like_to_regex(pattern).encode(), re.DOTALL)
+        want = [rx.fullmatch(s) is not None for s in d]
+        got = DL.like_table(entries, pattern).tolist()
+        assert got == want, pattern
+
+
+def test_like_pattern_limits_of_the_kernel():
+    """A pattern past the kernel's segments or bytes is refused before a
+    launch; the plain matcher has no limit."""
+    long = "%".join(["ab"] * (DL.MAX_SEGMENTS + 1))
+    with pytest.raises(ValueError):
+        DL._launch_args(DL.compile_pattern(long))
+    with pytest.raises(ValueError):
+        DL._launch_args(DL.compile_pattern("a" * (DL.MAX_PATTERN_BYTES + 1)))
+    DL._launch_args(DL.compile_pattern("a" * DL.MAX_PATTERN_BYTES))
+    entries = DL.dictionary_bytes(np.array([b"ab" * 70], "S140"), "cpu")
+    assert DL.like_table(entries, long).tolist() == [True]
+
+
+def test_device_copy_goes_with_its_dictionary():
+    """The device copy is made once per dictionary object and device, found
+    again by identity, never by equal contents, and freed when the
+    dictionary dies ("meta" stands in for a card: no bytes move)."""
+    d = np.array([b"ab", b"abc"], dtype="S3")
+    held = len(DL._COPIES)
+    copy = DL.dictionary_bytes(d, "meta")
+    assert copy.device.type == "meta" and tuple(copy.shape) == (2, 3)
+    assert DL.dictionary_bytes(d, "meta") is copy
+    assert len(DL._COPIES) == held + 1
+    twin = d.copy()
+    assert DL.dictionary_bytes(twin, "meta") is not copy
+    assert len(DL._COPIES) == held + 2
+    gone = weakref.ref(copy)
+    del copy, d, twin
+    gc.collect()
+    assert len(DL._COPIES) == held
+    assert gone() is None
+    # the CPU path is a view of the array and holds nothing
+    d = np.array([b"x"], dtype="S1")
+    assert DL.dictionary_bytes(d, "cpu").numpy().base is not None
+    assert len(DL._COPIES) == held
 
 
 def test_like_metacharacters_are_literal():
@@ -134,6 +228,30 @@ def test_year_domain_follows_the_day_domain():
     port = PE.ExtractYear(PE.Col("s")).eval(pctx)
     assert port.domain.tolist() == ref.domain.tolist() == list(range(1992,
                                                                      1999))
+
+
+def test_like_sees_an_inserted_string_until_rollback():
+    """An INSERT that merges a new string into o_comment's dictionary: LIKE
+    finds the new row inside the transaction and not after ROLLBACK (the
+    dictionary is a new object while the row lives, the old one after)."""
+    conn = Connection(load_catalog(0.01, device="cpu", cache=False),
+                      device="cpu")
+    count = ("SELECT count(*) AS n FROM orders "
+             "WHERE o_comment LIKE '%zzyzx%requests%'")
+    col = lambda: conn.catalog.table("orders").columns["o_comment"]
+    before = col().dictionary
+    assert conn.sql(count).strings() == [["0"]]
+    key = int(conn.sql("SELECT max(o_orderkey) AS k FROM orders")
+              .strings()[0][0]) + 1
+    conn.sql("BEGIN")
+    conn.sql(f"INSERT INTO orders VALUES ({key}, 1, 'O', 1.00, "
+             "DATE '1998-08-02', '1-URGENT', 'Clerk#000000001', 0, "
+             "'quick zzyzx requests')")
+    assert col().dictionary is not before
+    assert conn.sql(count).strings() == [["1"]]
+    conn.sql("ROLLBACK")
+    assert col().dictionary is before
+    assert conn.sql(count).strings() == [["0"]]
 
 
 @pytest.fixture(scope="module")
