@@ -1,11 +1,12 @@
 """The control of the comparison that decides `correct`.
 
 The control is the plain reference put in the engine's place and computed
-one precision below what the configurations state (`reference.queries.LOW`:
-DECIMAL in float64 dollars, DOUBLE in float32).  For each seed it answers
-the cell's 22 queries, at the state the window's first cycle queries, and
-holds those answers against the exact reference with `check.compare`.  The
-readings must fail the limits in `check.LIMITS`.
+one precision below what the configurations state (for TPC-H
+`reference.queries.LOW`: DECIMAL in float64 dollars, DOUBLE in float32).
+For each seed it answers the cell's queries, at the state the window's
+first cycle queries, and holds those answers against the exact reference
+with `check.compare`, through the configuration's suite (`suite.control`).
+The readings must fail the limits in `check.LIMITS`.
 
     python3 -m tpchbench.control --workload <cell> --seeds 1 2 3
 
@@ -20,32 +21,21 @@ import argparse
 import json
 import time
 
-from . import check, datagen, generator, run
-from .reference import queries
-from .reference.db import Database
+from . import check, run
 
 
 def readings(workload: str, seed: int, sf: float | None = None,
-             bench: dict | None = None) -> dict:
+             bench: dict | None = None, base: str = run.HERE) -> dict:
     bench = bench or run.load_benchmark()
     cell = run.find(bench["workloads"], workload, "workload")
-    config = run.load_config(cell["config"])
-    sf = float(config["scale_factor"] if sf is None else sf)
-    traffic = generator.Traffic(generator.load_mix(cell["traffic"]), sf, seed)
-    db = Database(datagen.base_tables(sf))
-    if traffic.refresh:
-        db.insert(*datagen.update_set(sf, traffic.update_set(0)))
-    wrong, gap, per_query = 0, 0.0, {}
-    for n in traffic.order:
-        p = traffic.params(0)[n]
-        exact = queries.answer(n, db, p, queries.EXACT)
-        low = queries.answer(n, db, p, queries.LOW)
-        got = [[c if isinstance(c, str) else repr(float(c)) for c in row]
-               for row in low.rows[:low.limit]]
-        w, g = check.compare(got, exact)
-        per_query[n] = [w, g]
-        wrong += w
-        gap = max(gap, g)
+    config = run.load_config(cell["config"], base)
+    suite = run.load_suite(config, base)
+    sf = suite.scale(config, sf)
+    traffic = suite.traffic(config, run.load_mix(cell["traffic"], base), sf,
+                            seed)
+    per_query = suite.control(config, suite.tables(config, sf), traffic)
+    wrong = sum(w for w, _ in per_query.values())
+    gap = max((g for _, g in per_query.values()), default=0.0)
     return {"workload": workload, "seed": seed, "sf": sf,
             "wrong_cells": wrong, "double_gap": gap, "per_query": per_query,
             "fails_limits": wrong > check.LIMITS["wrong_cells"]

@@ -6,9 +6,11 @@
 From the root of a checkout on a machine with an NVIDIA card.  The cell,
 its configuration (`configs/<config>.json`), its traffic mix
 (`traffic/<mix>.json`) and its metrics (`metrics/<metric>.py`) are all found
-by the names in `BENCHMARK.json`.  The engine under test is the PyTorch and
-CUDA port, driven through its public API: `connect`, `Connection.sql`,
-`Result.strings()`.
+by the names in `BENCHMARK.json`, and the configuration's suite
+(`suites/<suite>.py`, `tpch` where it names none) by its `suite`: the
+benchmark's own data, the engine's opening, the traffic and the reference.
+The engine under test is the PyTorch and CUDA port, driven through its
+public API: `connect`, `Connection.sql`, `Result.strings()`.
 
 A run: set-up (import, card, `connect`, one warm-up pass over every query
 text the window sends), a closed-loop window of `--seconds` (whole streams
@@ -52,8 +54,8 @@ class Records:
     setup_s: float = 0.0
     setup_parts: dict = field(default_factory=dict)
     trace: dict | None = None          # trace.collect's output
-    db: object = None                  # the reference's base tables
-    params: dict = field(default_factory=dict)
+    db: object = None                  # the suite's reference database
+    params: dict = field(default_factory=dict)   # the first cycle's
 
 
 def load_benchmark(root: str = ROOT) -> dict:
@@ -68,19 +70,36 @@ def find(items: list, name: str, what: str) -> dict:
     raise SystemExit(f"no {what} named {name!r} in BENCHMARK.json")
 
 
-def load_config(name: str) -> dict:
-    with open(os.path.join(HERE, "configs", f"{name}.json")) as f:
+def load_config(name: str, base: str = HERE) -> dict:
+    with open(os.path.join(base, "configs", f"{name}.json")) as f:
         return json.load(f)
+
+
+def load_mix(name: str, base: str = HERE) -> dict:
+    with open(os.path.join(base, "traffic", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _load_module(kind: str, name: str, path: str):
+    spec = importlib.util.spec_from_file_location(
+        f"tpchbench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_reader(name: str):
     """`metrics/<name>.py`'s `read(records) -> float | None`."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "tpchbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_module("metric", name,
+                        os.path.join(HERE, "metrics", f"{name}.py")).read
+
+
+def load_suite(config: dict, base: str = HERE):
+    """`suites/<suite>.py` named by the configuration (`suites/tpch.py`'s
+    docstring lists what a suite provides)."""
+    name = config.get("suite", "tpch")
+    return _load_module("suite", name,
+                        os.path.join(base, "suites", f"{name}.py"))
 
 
 def metrics_for(bench: dict, cell: str, traced: bool) -> list[dict]:
@@ -125,9 +144,10 @@ def check_loaded_rows(conn, tables: dict):
                                    "rows than the benchmark generated")
 
 
-def per_query_table(rec: Records) -> str:
-    """Per query of the window: runs, median / min / max ms, and the median
-    ms inside conn.sql and in strings(); then each refresh kind."""
+def per_query_table(rec: Records, label) -> str:
+    """Per query of the window (named by `label(n)`): runs, median / min /
+    max ms, and the median ms inside conn.sql and in strings(); then each
+    refresh kind."""
     import numpy as np
 
     lines = [f"{name} {load_reader(name)(rec)!r}" for name in (
@@ -135,7 +155,7 @@ def per_query_table(rec: Records) -> str:
     lines.append("q  runs  median  min  max  sql  strings (ms)")
     for n in sorted({q[0] for q in rec.queries}):
         q = np.array([x[1:4] for x in rec.queries if x[0] == n]) * 1000
-        lines.append(f"q{n:02d} {len(q)} {np.median(q[:, 0]):.3f} "
+        lines.append(f"{label(n)} {len(q)} {np.median(q[:, 0]):.3f} "
                      f"{q[:, 0].min():.3f} {q[:, 0].max():.3f} "
                      f"{np.median(q[:, 1]):.3f} {np.median(q[:, 2]):.3f}")
     for kind in ("rf1", "rf2"):
@@ -147,7 +167,7 @@ def per_query_table(rec: Records) -> str:
     slow = sorted({q[0] for q in rec.queries}, key=lambda n: -np.median(
         [x[1] for x in rec.queries if x[0] == n]))[:3]
     for n in slow:
-        lines.append(f"q{n:02d} in order: " + " ".join(
+        lines.append(f"{label(n)} in order: " + " ".join(
             str(round(x[1] * 1000)) for x in rec.queries if x[0] == n))
     for kind in ("rf1", "rf2"):
         t = [r[2] for r in rec.refreshes if r[0] == kind]
@@ -159,18 +179,20 @@ def per_query_table(rec: Records) -> str:
 
 def run_cell(bench: dict, workload: str, seed: int, seconds: float,
              traced: bool, *, device: str = "cuda", sf: float | None = None,
-             log=sys.stderr) -> tuple[dict, Records]:
+             log=sys.stderr, base: str = HERE) -> tuple[dict, Records]:
     """One run of one cell.  Returns (result line, records).  `device` and
-    `sf` other than the cell's are for rehearsals on the CPU only."""
+    `sf` other than the cell's are for rehearsals on the CPU only; `base`
+    is the directory the cell's configuration, mix and suite are found
+    under."""
     import torch
 
-    from . import check, datagen, generator, trace
-    from .reference import verify
+    from . import check, trace
 
     cell = find(bench["workloads"], workload, "workload")
-    config = load_config(cell["config"])
-    mix = generator.load_mix(cell["traffic"])
-    sf = float(config["scale_factor"] if sf is None else sf)
+    config = load_config(cell["config"], base)
+    suite = load_suite(config, base)
+    mix = load_mix(cell["traffic"], base)
+    sf = suite.scale(config, sf)
     on_card = device == "cuda"
     rec = Records(cell=cell)
     parts = rec.setup_parts
@@ -181,14 +203,13 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
 
     # the benchmark's own data and traffic (not set-up)
     t = time.perf_counter()
-    tables = datagen.base_tables(sf)
-    traffic = generator.Traffic(mix, sf, seed)
+    tables = suite.tables(config, sf)
+    traffic = suite.traffic(config, mix, sf, seed)
     rec.params = traffic.params(0)
     harness_s = time.perf_counter() - t
 
     t = time.perf_counter()
-    from duckdb_cubit_tpu_torch.api import connect
-    conn = connect(sf, device=device)
+    conn = suite.connect(config, tables, sf, device)
     parts["connect_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -239,7 +260,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
                 try:
                     if kind == "query":
                         n, sql = step[1], step[2]
-                        name = f"q{n:02d}"
+                        name = traffic.label(n)
                         t0 = time.perf_counter()
                         with span(f"sql:{name}"):
                             res = conn.sql(sql)
@@ -295,10 +316,9 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
 
     # ---------------------------------------------------------- correctness
     t = time.perf_counter()
-    from .reference.db import Database
-    rec.db = Database(tables)
-    compared = verify.verify(rec.db, traffic, sf, seed, cycles, rows_of,
-                             len(rec.queries), rec.refreshes)
+    rec.db = suite.reference(config, tables, sf)
+    compared = suite.verify(rec.db, traffic, sf, seed, cycles, rows_of,
+                            len(rec.queries), rec.refreshes)
     ok = (failed == 0 and all(v <= check.LIMITS[k]
                               for k, v in compared.items()))
     print(f"reference and comparison {time.perf_counter() - t:.3f} s over "
@@ -324,7 +344,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
                           for k, v in compared.items()}
     print(f"{len(rec.queries)} queries, {len(rec.refreshes)} refresh "
           f"functions in {rec.window_s:.3f} s", file=log)
-    print(per_query_table(rec), file=log)
+    print(per_query_table(rec, traffic.label), file=log)
     for k, v in compared.items():
         print(f"{k} {v!r} limit {check.LIMITS[k]!r}", file=log, flush=True)
     return result, rec
