@@ -168,10 +168,11 @@ def bench_join_probe(catalog, device) -> dict:
     li, orders = catalog.table("lineitem"), catalog.table("orders")
     n = li.num_rows
     pk = orders.pk_indexes["o_orderkey"]
-    lut, max_key = pk.lut, pk.max_key
+    # every probe below runs in the table's slot space (key - base)
+    lut, last = pk.lut, pk.span - 1
     omask = orders.row_mask()
-    keys = li.columns["l_orderkey"].data.to(torch.int64)
-    perturbed = [keys.add(4 * i).clamp(max=max_key).to(torch.int32)
+    keys = li.columns["l_orderkey"].data.to(torch.int64) - pk.base
+    perturbed = [keys.add(4 * i).clamp(max=last).to(torch.int32)
                  for i in range(3)]
     for kk in perturbed:
         out, ovf = probe.monotone_gather(lut, kk)
@@ -183,12 +184,12 @@ def bench_join_probe(catalog, device) -> dict:
 
     def plain_probe(kk):
         k = kk.to(torch.int64)
-        in_range = (k >= 0) & (k <= max_key)
-        r = lut[k.clamp(0, max_key)]
+        in_range = (k >= 0) & (k <= last)
+        r = lut[k.clamp(0, last)]
         found = in_range & (r >= 0) & omask[r.clamp(min=0)]
         return torch.where(found, r, torch.full_like(r, -1))
 
-    okeys = orders.columns["o_orderkey"].data.to(torch.int64)
+    okeys = orders.columns["o_orderkey"].data.to(torch.int64) - pk.base
     bs = join_ops.build(okeys, omask)
     valid = torch.ones_like(keys, dtype=torch.bool)
 

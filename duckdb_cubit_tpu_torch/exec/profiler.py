@@ -61,7 +61,8 @@ MAX_SPANS = 2_000_000
 # the engine's counters a statement's root records as deltas
 COUNTERS = ("prepare_hits", "prepare_misses", "k1_launches", "k2_launches",
             "retries", "compacted", "dict_entries", "cubit_merges",
-            "rows_written", "k6_launches")
+            "rows_written", "k6_launches", "pk_probe_rows",
+            "sort_probe_rows")
 
 
 class _State:
@@ -221,14 +222,15 @@ def operator(op, profiler: "QueryProfiler | None" = None):
 
 def _counter_values(executor) -> list[int]:
     from ..index import cubit
-    from ..ops import dict_like, expressions, fused_scan, probe
+    from ..ops import dict_like, expressions, fused_scan, join, probe
+    from ..plan import physical
     from ..storage import dml
 
     return [executor.prepare_hits, executor.prepare_misses,
             fused_scan.launch_count, probe.launch_count,
             executor.retry_count, executor.compacted_boundaries,
             expressions.dict_entries, cubit.merge_count, dml.rows_written,
-            dict_like.launch_count]
+            dict_like.launch_count, physical.pk_probe_rows, join.probe_rows]
 
 
 class _Statement(_Span):

@@ -36,6 +36,8 @@ from ..ops import bitmap as bm
 
 # merges that published buffered deltas (`CubitIndex.merge`)
 merge_count = 0
+# an index of at most this many bins packs a mask a bin at build
+PACK_BINS = 64
 
 @dataclasses.dataclass
 class RangeQueryResult:
@@ -56,8 +58,12 @@ class CubitIndex:
         # the global row of bit 0 (a row block's on a mesh)
         self.row_offset = 0
         self.n_bins = n_bins
-        # For edge-binned indexes, bin b covers values in [edges[b], edges[b+1]).
+        # For edge-binned indexes, bin b covers values in [edges[b], edges[b+1]),
+        # and the last bin every value from its edge up
         self.bin_edges = bin_edges
+        # the largest value an edge-binned index has held (deletes do not
+        # lower it), the last bin's upper end; None where unknown
+        self.top: int | None = None
         self.device = torch.device(device)
         self.epoch = 0
         self.words: torch.Tensor | None = None  # (n_bins, n_words) int32
@@ -73,7 +79,15 @@ class CubitIndex:
     def bin_of(self, values: np.ndarray) -> np.ndarray:
         if self.bin_edges is None:
             return values
-        return np.searchsorted(self.bin_edges, values, side="right") - 1
+        edges = self.bin_edges
+        values = np.asarray(values)
+        if (values.dtype.kind in "iu" and edges.dtype.kind in "iu"
+                and len(edges) > 1
+                and edges[-1] - edges[0] == len(edges) - 1):
+            # one bin a value of a run of integers: an offset, no search
+            return np.clip(values.astype(np.int64) - int(edges[0]), -1,
+                           len(edges) - 1)
+        return np.searchsorted(edges, values, side="right") - 1
 
     def _upload(self, words_u32: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(
@@ -92,22 +106,34 @@ class CubitIndex:
         idx = cls(name, capacity, n_bins, bin_edges, device=device)
         codes = np.asarray(values_or_codes)[:num_rows]
         if bin_edges is not None:
+            idx._raise_top(codes)
             codes = idx.bin_of(codes)
-        codes = codes.astype(np.int64)
-        rows = np.arange(num_rows, dtype=np.int64)
-        word = rows >> 5
-        bit = (1 << (rows & 31)).astype(np.float64)
-        flat = codes * idx.n_words + word
-        words = np.bincount(flat, weights=bit,
-                            minlength=n_bins * idx.n_words)
-        words = words.astype(np.int64).astype(np.uint32).reshape(
-            n_bins, idx.n_words)
+        if n_bins <= PACK_BINS:
+            # one packed mask a bin: a few cheap passes over narrow codes
+            # beat one scattered bincount
+            codes = codes.astype(np.int8)
+            packed = np.zeros((n_bins, idx.n_words * 4), dtype=np.uint8)
+            for b in range(n_bins):
+                p = np.packbits(codes == b, bitorder="little")
+                packed[b, :len(p)] = p
+            words = packed.view("<u4")
+        else:
+            codes = codes.astype(np.int64)
+            rows = np.arange(num_rows, dtype=np.int64)
+            word = rows >> 5
+            bit = (1 << (rows & 31)).astype(np.float64)
+            flat = codes * idx.n_words + word
+            words = np.bincount(flat, weights=bit,
+                                minlength=n_bins * idx.n_words)
+            words = words.astype(np.int64).astype(np.uint32).reshape(
+                n_bins, idx.n_words)
         idx.words = idx._upload(words)
         idx.bin_counts = np.bincount(
             np.clip(codes, 0, n_bins - 1), minlength=n_bins).astype(np.int64)
         if idx.range_encode:
-            cum = np.cumsum(words.astype(np.uint64), axis=0).astype(np.uint32)
-            idx.cum_words = idx._upload(cum)
+            # disjoint bins: the cumulative OR is the cumulative sum
+            idx.cum_words = idx._upload(np.bitwise_or.accumulate(words,
+                                                                 axis=0))
         else:
             idx.cum_words = None
         return idx
@@ -166,7 +192,11 @@ class CubitIndex:
             hi_eff = hi if hi_inclusive else hi - 1
             bhi = int(np.searchsorted(edges, hi_eff, side="right") - 1)
             bhi = min(bhi, self.n_bins - 1)
-            if bhi + 1 < len(edges) and edges[bhi + 1] != hi_eff + 1:
+            # the last bin has no upper edge: it ends at the largest value
+            # it has held
+            if (edges[bhi + 1] != hi_eff + 1 if bhi + 1 < len(edges)
+                    else bhi >= 0 and (self.top is None
+                                       or hi_eff < self.top)):
                 refine.append(("hi", bhi))
         return blo, bhi, refine
 
@@ -242,8 +272,15 @@ class CubitIndex:
         return (self.bin_of(values) if self.bin_edges is not None
                 else values).astype(np.int64)
 
+    def _raise_top(self, values):
+        values = np.asarray(values)
+        if self.bin_edges is not None and values.size:
+            v = int(values.max())
+            self.top = v if self.top is None else max(self.top, v)
+
     def update_many(self, rows, old_values, new_values):
         """`update` of many rows: one buffered delta a row."""
+        self._raise_top(new_values)
         self._pending.extend(zip(np.asarray(rows, np.int64).tolist(),
                                  self.bins_of(old_values).tolist(),
                                  self.bins_of(new_values).tolist()))
@@ -257,12 +294,14 @@ class CubitIndex:
 
     def update(self, row: int, old_value, new_value):
         """Buffer a value change for `row` (CUBIT UpdateConscious delta)."""
+        self._raise_top([new_value])
         self._pending.append((row, self._bin(old_value), self._bin(new_value)))
 
     def delete(self, row: int, old_value):
         self._pending.append((row, self._bin(old_value), -1))
 
     def insert(self, row: int, new_value):
+        self._raise_top([new_value])
         self._pending.append((row, -1, self._bin(new_value)))
 
     @property

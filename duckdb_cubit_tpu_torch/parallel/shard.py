@@ -117,7 +117,8 @@ def shard_index(ix: CubitIndex, mesh: Mesh, sharded: bool) -> CubitIndex:
 def shard_pk(pk: DirectPKIndex, mesh: Mesh) -> DirectPKIndex:
     """A PK index replicated on this rank's device (its value luts are built
     again there, from the global host mirrors)."""
-    out = DirectPKIndex(pk.column, _place(pk.lut, mesh.device), pk.max_key)
+    out = DirectPKIndex(pk.column, _place(pk.lut, mesh.device), pk.max_key,
+                        pk.base)
     out._lut_host = pk._lut_host
     return out
 

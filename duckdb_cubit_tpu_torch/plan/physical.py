@@ -50,6 +50,10 @@ from ..parallel import shard as SH
 from ..storage.table import Table, pad_count
 from ..types import BOOL, DOUBLE, INT64, DataType, TypeId
 
+# probe rows that took a key-to-row table (`HashJoin._pk_probe`), read as
+# the `pk_probe_rows` counter of a statement's root span
+pk_probe_rows = 0
+
 
 @dataclasses.dataclass
 class RelColumn:
@@ -273,6 +277,9 @@ class TableScan(PhysicalOperator):
         self.index_filters = list(index_filters or [])
         self.decode_threshold = decode_threshold
         self.decode_max_count = decode_max_count
+        # the build side of a join through a key-to-row table keeps its
+        # table's row space (`HashJoin._align_pk_build`)
+        self.keep_aligned = False
 
     def needed_columns(self, table: Table) -> list[str]:
         if self.projection is None:
@@ -333,7 +340,8 @@ class TableScan(PhysicalOperator):
                 max_count = ctx.config.index_scan_max_count
         self._words = self._index_words(table)
         self._decode_cap = None
-        if self._words is not None and not self.filters:
+        if self._words is not None and not self.filters and \
+                not self.keep_aligned:
             n_rows = table.num_rows
             bound = self._index_count_bound(table)
             limit = max(max_count, int(n_rows * threshold))
@@ -648,9 +656,12 @@ class HashJoin(PhysicalOperator):
         return [self.children[1]]
 
     def prepare(self, ctx: ExecContext):
+        if len(self.build_keys) == 1 and (
+                self.single_match or self.join_type in ("semi", "anti")):
+            self._align_pk_build(ctx)
         super().prepare(ctx)
         # direct-address PK join eligibility: single-column key against a
-        # mask-aligned base-table relation that has a dense PK index
+        # mask-aligned base-table relation that has a key-to-row table
         self._pk = None
         self._reverse_pk = None
         if len(self.build_keys) == 1:
@@ -659,7 +670,7 @@ class HashJoin(PhysicalOperator):
                 table = ctx.catalog.table(base)
                 pk = table.pk_indexes.get(self.build_keys[0])
                 if pk is not None:
-                    self._pk = (base, self.build_keys[0], pk.max_key)
+                    self._pk = (base, self.build_keys[0])
                     self._vlut_cols = self._pick_vlut_cols(table)
         if (self._pk is None and self.join_type in ("semi", "anti")
                 and len(self.probe_keys) == 1):
@@ -669,7 +680,21 @@ class HashJoin(PhysicalOperator):
                 table = ctx.catalog.table(base)
                 pk = table.pk_indexes.get(self.probe_keys[0])
                 if pk is not None:
-                    self._reverse_pk = (base, self.probe_keys[0], pk.max_key)
+                    self._reverse_pk = (base, self.probe_keys[0])
+
+    def _align_pk_build(self, ctx):
+        """Before the children prepare: a build side that is a scan (under
+        filters and projections) of a table with a key-to-row table on the
+        build key keeps its row space.  A selective index scan would
+        otherwise decode its rows to a compacted relation, and the join
+        would sort the probe side's keys (a sort over every probe row,
+        where the table probes them)."""
+        op = self.children[1]
+        while isinstance(op, (Filter, Project, Limit)):
+            op = op.children[0]
+        if isinstance(op, TableScan) and self.build_keys[0] in \
+                ctx.catalog.table(op.table_name).pk_indexes:
+            op.keep_aligned = True
 
     def _pick_vlut_cols(self, table) -> list[str]:
         """Build columns eligible for the kernel's value-lut fetch:
@@ -685,33 +710,44 @@ class HashJoin(PhysicalOperator):
         return out
 
     def _pk_probe(self, ctx, probe_rel, build_rel, value_cols=()):
-        """-> (build row or -1, found, the kernel's clipped int32 keys or
-        None when the plain lut path ran, {column: its build values fetched
-        through its value lut by the same kernel pass}).  `value_cols` are
-        the columns to fetch on the kernel path."""
-        base, col, max_key = self._pk
-        table = ctx.catalog.table(base)
+        """-> (build row or -1, found, the probe keys (at a matched row, the
+        build key) or None when the plain lut path ran, {column: its build
+        values fetched through its value lut by the same kernel pass}).
+        `value_cols` are the columns to fetch on the kernel path."""
+        table_name, col = self._pk
+        table = ctx.catalog.table(table_name)
         pkidx = table.pk_indexes[col]
         kcol = probe_rel.columns[self.probe_keys[0]]
-        if not self._kernel_probe_eligible(ctx, kcol, probe_rel, max_key,
-                                           build_rel):
-            row, found = pkidx.probe(kcol.array, probe_rel.mask,
-                                     build_rel.mask)
-            return row, found, None, {}
-        # build-side liveness folds into the lut with one scatter, so the
-        # probe and every value fetch are a single kernel pass; an overflow
-        # (a key that breaks the sorted, in-range precondition) is a
-        # recoverable deferred check: the executor sets _no_kernel_probe and
-        # runs the query again
-        k = kcol.array.to(torch.int64)
-        in_range = (k >= 0) & (k <= max_key) & probe_rel.mask
-        bk = build_rel.columns[self.build_keys[0]].array.to(torch.int64)
-        tgt = torch.where(build_rel.mask, torch.clamp(bk, 0, max_key),
-                          torch.full_like(bk, max_key + 1))
-        alive_slots = torch.zeros(max_key + 2, dtype=torch.bool,
-                                  device=bk.device)
+        route = "k2" if self._kernel_probe_eligible(
+            ctx, kcol, probe_rel, pkidx.span, build_rel) else "gather"
+        global pk_probe_rows
+        pk_probe_rows += probe_rel.capacity
+        with PROF.span("db.join.pk_probe") as sp:
+            sp.set(rows=probe_rel.capacity, slots=pkidx.span, route=route)
+            if route == "gather":
+                row, found = pkidx.probe(kcol.array, probe_rel.mask,
+                                         build_rel.mask)
+                return row, found, None, {}
+            return self._k2_probe(ctx, table, pkidx, kcol, probe_rel,
+                                  build_rel, value_cols)
+
+    def _k2_probe(self, ctx, table, pkidx, kcol, probe_rel, build_rel,
+                  value_cols):
+        """`_pk_probe`'s kernel route.  Build-side liveness folds into the
+        lut with one scatter, so the probe and every value fetch are a
+        single kernel pass; an overflow (a key that breaks the sorted,
+        in-range precondition) is a recoverable deferred check: the executor
+        sets _no_kernel_probe and runs the query again."""
+        span = pkidx.span
+        kc, in_range = pkidx.slots(kcol.array)
+        in_range = in_range & probe_rel.mask
+        bslot = pkidx.clamped(build_rel.columns[self.build_keys[0]].array)
+        tgt = torch.where(build_rel.mask, bslot,
+                          torch.full_like(bslot, span))
+        alive_slots = torch.zeros(span + 1, dtype=torch.bool,
+                                  device=bslot.device)
         alive_slots[tgt] = True
-        lut_eff = torch.where(alive_slots[: max_key + 1], pkidx.lut,
+        lut_eff = torch.where(alive_slots[:span], pkidx.lut,
                               torch.full_like(pkidx.lut, -1))
         # value luts are built once on the host and cached on the index
         vluts = []
@@ -719,13 +755,13 @@ class HashJoin(PhysicalOperator):
             bc = table.columns[n]
             vluts.append(pkidx.device_value_lut(
                 n, bc.host if bc.host is not None else bc.data.cpu().numpy()))
-        kc = torch.clamp(k, 0, max_key).to(torch.int32)
+        kc = kc.to(torch.int32)
         outs, ovf = PPK.monotone_gather_many([lut_eff, *vluts], kc)
         ctx.add_check(self, "pkprobe", ovf == 0)
         row = outs[0]
         found = in_range & (row >= 0)
-        return (torch.where(found, row, torch.full_like(row, -1)), found, kc,
-                dict(zip(value_cols, outs[1:])))
+        return (torch.where(found, row, torch.full_like(row, -1)), found,
+                kcol.array, dict(zip(value_cols, outs[1:])))
 
     def _value_fetches(self, probe_rel, build_rel) -> list[str]:
         """Build columns the single-match gather takes from value luts: each
@@ -735,20 +771,21 @@ class HashJoin(PhysicalOperator):
                 and build_rel.columns[n].valid is None
                 and self.build_prefix + n not in probe_rel.columns]
 
-    def _kernel_probe_eligible(self, ctx, kcol, probe_rel, max_key,
+    def _kernel_probe_eligible(self, ctx, kcol, probe_rel, span,
                                build_rel) -> bool:
         """Host gate of the kernel probe: sorted probe keys (the storage
         column, or a compaction of it that keeps its order), no NULL keys,
-        the kernel's size gate, and not verification's leg 3."""
+        the kernel's size gate over the table's `span` slots, and not
+        verification's leg 3."""
         if getattr(self, "_no_kernel_probe", False) or ctx.verify_mode:
             return False
-        if not kcol.monotone or max_key + 1 >= 2**31:
+        if not kcol.monotone or span >= 2**31:
             return False
         if kcol.valid is not None:
             return False
         if self.build_keys[0] not in build_rel.columns:
             return False
-        return PPK.plan_monotone_gather(probe_rel.capacity, max_key + 1)
+        return PPK.plan_monotone_gather(probe_rel.capacity, span)
 
     def _execute(self, ctx):
         probe_rel = self.children[0].execute(ctx)
@@ -789,11 +826,11 @@ class HashJoin(PhysicalOperator):
         if self._reverse_pk is not None and not ctx.verify_mode:
             # the probe side owns the PK: one scatter of the build side's
             # hits into a probe-row flag array instead of a hash build
-            base, _, max_key = self._reverse_pk
-            lut = ctx.catalog.table(base).pk_indexes[self.probe_keys[0]].lut
-            k = build_rel.columns[self.build_keys[0]].array.to(torch.int64)
-            ok = build_rel.mask & (k >= 0) & (k <= max_key)
-            rows = lut[torch.clamp(k, 0, max_key)]
+            pkidx = ctx.catalog.table(self._reverse_pk[0]).pk_indexes[
+                self.probe_keys[0]]
+            slot, ok = pkidx.slots(build_rel.columns[self.build_keys[0]].array)
+            ok = build_rel.mask & ok
+            rows = pkidx.lut[slot]
             hit = _scatter_flags(probe_rel.capacity, rows, ok & (rows >= 0))
             m = ~hit if self.join_type == "anti" else hit
             return probe_rel.with_mask(probe_rel.mask & m)
@@ -1286,7 +1323,7 @@ class GroupAggregate(PhysicalOperator):
                 pk = table.pk_indexes.get(pk_col)
                 if pk is not None:
                     # the group ids are the referenced table's global rows
-                    self._fk_dense = (pk_table, pk_col, pk.max_key,
+                    self._fk_dense = (pk_table, pk_col,
                                       table.global_capacity)
         self._prepare_kernel(ctx)
 
@@ -1572,11 +1609,10 @@ class GroupAggregate(PhysicalOperator):
         """GROUP BY: FK-dense (not in verification's leg 3), dense
         mixed-radix or sort-based group ids, then `_aggregate`."""
         if self._fk_dense is not None and not ctx.verify_mode:
-            pk_table, pk_col, max_key, num_groups = self._fk_dense
-            lut = ctx.catalog.table(pk_table).pk_indexes[pk_col].lut
-            key = rel.columns[self.keys[0]].array.to(torch.int64)
-            in_range = (key >= 0) & (key <= max_key)
-            gid = lut[torch.clamp(key, 0, max_key)]
+            pk_table, pk_col, num_groups = self._fk_dense
+            pkidx = ctx.catalog.table(pk_table).pk_indexes[pk_col]
+            slot, in_range = pkidx.slots(rel.columns[self.keys[0]].array)
+            gid = pkidx.lut[slot]
             valid = rel.mask & in_range & (gid >= 0)
             gids = torch.clamp(gid, min=0).to(torch.int32)
             if num_groups > self._small:

@@ -114,6 +114,15 @@ def build_indexes(table: Table, spec: dict):
         table.indexes[col_name] = idx
 
 
+def _carry_pk(pk, device) -> DirectPKIndex:
+    """The JAX package's table starts at key 0; the port's at the smallest
+    key."""
+    lut = np.asarray(pk.lut)
+    base = int(np.flatnonzero(lut >= 0)[0])
+    return DirectPKIndex(pk.column, _tensor(lut[base:], device), pk.max_key,
+                         base)
+
+
 def build_pk_index(table: Table):
     col_name = PK_COLUMNS.get(table.name)
     if col_name is None:
@@ -183,9 +192,12 @@ def _carry_dtype(dt) -> DataType:
     return DataType(TypeId(dt.id.value), dt.scale)
 
 
-def _carry_index(ix, device) -> CubitIndex:
+def _carry_index(ix, device, host) -> CubitIndex:
+    """`host`: the indexed column's values (the last bin's upper end)."""
     out = CubitIndex(ix.name, ix.capacity, ix.n_bins, ix.bin_edges,
                      ix.range_encode, device=device)
+    if host is not None:
+        out._raise_top(host)
     out.epoch = ix.epoch
     out.words = _words_tensor(ix.words, device)
     out.cum_words = _words_tensor(ix.cum_words, device)
@@ -226,10 +238,11 @@ def from_reference_catalog(ref_catalog, *, device) -> Catalog:
                   capacity=rt.capacity, unique_keys=list(rt.unique_keys),
                   version=rt.version, device=device,
                   deleted=_tensor(getattr(rt, "deleted", None), device))
-        t.indexes = {c: _carry_index(ix, device)
+        t.indexes = {c: _carry_index(ix, device, None if columns[c].host
+                                     is None else columns[c].host[
+                                         :rt.num_rows])
                      for c, ix in rt.indexes.items()}
-        t.pk_indexes = {c: DirectPKIndex(pk.column, _tensor(pk.lut, device),
-                                         pk.max_key)
+        t.pk_indexes = {c: _carry_pk(pk, device)
                         for c, pk in rt.pk_indexes.items()}
         catalog.register(t)
     catalog.foreign_keys = dict(ref_catalog.foreign_keys)

@@ -74,8 +74,9 @@ def test_tables_are_sharded(ranks):
         n_bins, words = s["word_shape"]
         assert words == s["global"] // 32 // N_RANKS
         assert s["cum_shape"] == s["word_shape"]
-        # the PK lut is whole on every rank: max o_orderkey + 1 slots
-        assert s["pk_slots"] == 60_000 + 1
+        # the PK lut is whole on every rank: one slot a key from the
+        # smallest o_orderkey (1) to the largest
+        assert s["pk_slots"] == 60_000
     live = [ranks[r]["sharding"]["live"] for r in range(N_RANKS)]
     assert sum(live) == 60_175
     # full, partly live and empty blocks: rank 7 holds 2,831 live rows of

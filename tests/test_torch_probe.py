@@ -277,8 +277,10 @@ def test_pk_index_probe_and_value_lut_match_reference():
     np.testing.assert_array_equal(p_found.numpy(), np.asarray(r_found))
     vlut = port.device_value_lut("v", values)
     assert vlut.dtype == torch.int32
-    np.testing.assert_array_equal(vlut.numpy(),
-                                  np.asarray(ref.device_value_lut("v", values)))
+    # the port's slots start at the smallest key, the JAX package's at 0
+    assert port.base == 1
+    np.testing.assert_array_equal(
+        vlut.numpy(), np.asarray(ref.device_value_lut("v", values))[1:])
 
 
 @pytest.fixture
@@ -325,3 +327,136 @@ def test_cuda_many_lut_kernel_matches_plain_body(cuda_device, case, n_luts):
     assert probe.launch_count == before + (n_luts + 7) // 8
     want, want_ovf = probe.monotone_gather_many_reference(luts, tk)
     assert torch.equal(outs, want) and int(ovf) == int(want_ovf)
+
+
+# ----------------------------------------------------------------------
+# Key-to-row tables from the smallest key (the port's `base`).  The JAX
+# package's tables start at key 0 and refuse a sparse key with a large
+# base, so its plans take the sort-merge join there; rows must agree.
+
+def _datekeys(n):
+    import datetime
+    d0 = datetime.date(1992, 1, 1)
+    days = [d0 + datetime.timedelta(days=i) for i in range(n)]
+    return np.array([x.year * 10_000 + x.month * 100 + x.day for x in days],
+                    dtype=np.int64)
+
+
+def test_an_offset_table_probes_keys_below_above_absent_and_null():
+    keys = np.random.default_rng(9).permutation(_datekeys(2556))
+    n = len(keys)
+    port = DirectPKIndex.build("d", keys, n, device="cpu")
+    assert RefPKIndex.build("d", keys, n) is None
+    assert port.base == 19920101 and port.max_key == int(keys.max())
+    assert port.span == port.max_key - port.base + 1 <= 1 << 16
+    row_of = {int(k): i for i, k in enumerate(keys)}
+    probe_keys = np.concatenate([
+        keys[:500], [0, -7, 19920100, 19920101, port.max_key,
+                     port.max_key + 1, 2**31 - 1, 19920132, 19930230],
+        _datekeys(3000)[2500:]])
+    valid = np.ones(len(probe_keys), dtype=bool)
+    valid[::7] = False
+    build_mask = np.ones(n, dtype=bool)
+    build_mask[row_of[19920101]] = False
+    row, found = port.probe(torch.as_tensor(probe_keys),
+                            torch.as_tensor(valid),
+                            torch.as_tensor(build_mask))
+    want = np.array([row_of.get(int(k), -1) if v else -1
+                     for k, v in zip(probe_keys, valid)])
+    want[want >= 0] = np.where(build_mask[want[want >= 0]],
+                               want[want >= 0], -1)
+    np.testing.assert_array_equal(row.numpy(), want)
+    np.testing.assert_array_equal(found.numpy(), want >= 0)
+
+
+def test_a_table_of_few_slots_is_built_however_sparse_and_a_large_one_not():
+    few = np.array([5, 40_000, 65_540], dtype=np.int64)
+    pk = DirectPKIndex.build("k", few, 3, device="cpu")
+    assert (pk.base, pk.span) == (5, 65_536)
+    assert DirectPKIndex.build("k", np.array([5, 65_541]), 2,
+                               device="cpu") is None
+    assert DirectPKIndex.build("k", np.array([3, 9, 3]), 3,
+                               device="cpu") is None
+
+
+def _dml_pair():
+    from duckdb_cubit_tpu.api import Connection as RefConnection
+    from duckdb_cubit_tpu_torch.api import Connection
+    ref, port = RefConnection(), Connection(device="cpu")
+    rng = np.random.default_rng(11)
+    dkeys = 1_000_000 + rng.permutation(1000)
+    dim = ", ".join(f"({k}, {k % 97})" for k in dkeys.tolist())
+    fk = np.concatenate([rng.choice(dkeys, 3000), [999_990, 1_002_000, 5,
+                                                  999_999, 1_001_000]])
+    fact = ", ".join(f"({k}, {i})" for i, k in enumerate(fk.tolist()))
+    for c in (ref, port):
+        c.sql("CREATE TABLE d (k INTEGER, w INTEGER)")
+        c.sql(f"INSERT INTO d VALUES {dim}")
+        c.sql("CREATE TABLE f (fk INTEGER, x INTEGER)")
+        c.sql(f"INSERT INTO f VALUES {fact}")
+    port.sql("CREATE UNIQUE INDEX ON d(k)")
+    with pytest.raises(Exception, match="unsuitable"):
+        ref.sql("CREATE UNIQUE INDEX ON d(k)")
+    return ref, port
+
+
+JOIN = ("SELECT fk, x, w FROM f, d WHERE fk = k ORDER BY x")
+GROUPED = ("SELECT w, count(*) AS n, sum(x) AS s FROM f, d "
+           "WHERE fk = k GROUP BY w ORDER BY w")
+
+
+def test_an_offset_table_through_insert_delete_and_rollback_matches_jax():
+    ref, port = _dml_pair()
+
+    def same(expect_base):
+        pk = port.catalog.table("d").pk_indexes["k"]
+        assert pk.base == expect_base
+        assert "single=True" in port.explain(JOIN)
+        for q in (JOIN, GROUPED):
+            assert port.sql(q).strings() == ref.sql(q).strings(), q
+
+    same(1_000_000)
+    for c in (ref, port):
+        c.sql("INSERT INTO d VALUES (999990, 1)")      # below the base
+    same(999_990)
+    for c in (ref, port):
+        c.sql("INSERT INTO d VALUES (1002000, 2)")     # past the top
+    same(999_990)
+    assert port.catalog.table("d").pk_indexes["k"].max_key == 1_002_000
+    for c in (ref, port):
+        c.sql("BEGIN")
+        c.sql("DELETE FROM d WHERE k = 999990 OR k = 1000500")
+    same(999_990)
+    for c in (ref, port):
+        c.sql("ROLLBACK")
+    same(999_990)
+    assert len(port.sql(JOIN).strings()) == 3002
+
+
+def test_tpch_dense_keys_keep_base_one_and_the_kernel_route():
+    from torch.profiler import ProfilerActivity, profile
+
+    from duckdb_cubit_tpu_torch.api import Connection
+    from duckdb_cubit_tpu_torch.exec import profiler as PROF
+    from duckdb_cubit_tpu_torch.tpch.load import load_catalog
+    from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
+
+    conn = Connection(load_catalog(0.01, device="cpu", cache=False),
+                      device="cpu")
+    for t, col in (("orders", "o_orderkey"), ("customer", "c_custkey"),
+                   ("part", "p_partkey"), ("supplier", "s_suppkey")):
+        pk = conn.catalog.table(t).pk_indexes[col]
+        assert pk.base == 1 and pk.span == pk.max_key
+    PROF.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            conn.sql(SQL[12]).strings()
+        probes = [s for s in PROF.spans() if s[0] == "db.join.pk_probe"]
+        roots = [s for s in PROF.spans() if s[0] == "db.sql"]
+    finally:
+        PROF.reset()
+    assert probes and all(s[5]["route"] == "k2" for s in probes)
+    assert probes[0][5]["slots"] == conn.catalog.table(
+        "orders").pk_indexes["o_orderkey"].span
+    assert roots[0][5]["pk_probe_rows"] > 0
+    assert roots[0][5]["sort_probe_rows"] == 0
