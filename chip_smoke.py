@@ -11,10 +11,11 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  Phases, each of which
 raises on failure (non-zero exit):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
-  2. build: all seven kernels from duckdb_cubit_tpu_torch/csrc/, one nvcc
+  2. build: all eight kernels from duckdb_cubit_tpu_torch/csrc/, one nvcc
      each, started together: K1 the fused scan-sum, K2 the monotone gather,
      K3 / K4 the Q6 word- and mask-sums with int32 halves, K5a the table
-     gather, K5b the lane gather and K6 the dictionary LIKE matcher;
+     gather, K5b the lane gather, K6 the dictionary LIKE matcher and K7 the
+     stream compaction;
   3. kernel parity: each kernel against its plain torch version on the card,
      bit-exact.  K1 in every mode (single, pair, packed), ragged and aligned
      lengths, empty / full / sparse masks, int64 accumulation past 2**31,
@@ -45,7 +46,12 @@ raises on failure (non-zero exit):
      4 B off a boundary.  K6 over every pattern of `K6_PATTERNS` and two
      longer than the width, on widths 1, 7, 16, 55, 79, 101 and two wider
      than a tile (200, 300), n = 1, 3, 127, 129 and 5000, each also from
-     `entries[1:]` (tiles off a 16-B boundary), and 1.5M entries of 79 B;
+     `entries[1:]` (tiles off a 16-B boundary), and 1.5M entries of 79 B.
+     K7 (ids, padding and count) on lengths that are a multiple of neither
+     32 nor its 16 KB tile, more set rows than slots, more slots than rows,
+     all set, all clear, one set row (the last), views 1-15 B off a 16-B
+     boundary, 2**27 rows at densities 0.001, 0.02 and 0.5, and SSB's and
+     TPC-H's shapes (`K7_SHAPES`);
   4. main path: connect(sf, device="cuda"), every table / index tensor on the
      card.  Q6 (and an off-bin-edge variant), Q1, Q12 and Q3 through
      conn.sql() against numpy oracles on the generated columns (Q6 also
@@ -78,7 +84,9 @@ raises on failure (non-zero exit):
      0 just before it and read just after, held cell by cell (DOUBLE cells
      within 1e-9) against the rows the card's builder of the same query
      gave in phase 5 (themselves held against the port's CPU run).  K1 must
-     launch exactly once in q6, K2 in q3 and q12, K6 in q2, q9, q13, q14,
+     launch exactly once in q6, K2 in q3 and q12, K7 at least once for
+     each compacted stage input (and on the profiler's root,
+     `k7_launches`), K6 in q2, q9, q13, q14,
      q16 and q20 and in no other text, and again in every timed run (no
      truth table is kept).  Per query: the first rows, K1 / K2 launches
      beside the builder's, K6's, the retries, the median of warm wall times
@@ -105,7 +113,9 @@ raises on failure (non-zero exit):
      and the one PyTorch call that computes the same function, where there
      is one; K2's 2- and 4-lut passes against the one-lut launches they
      replaced; K6 at q13's o_comment and q09's p_name inputs, and the host
-     regex walk it replaced at q13's;
+     regex walk it replaced at q13's; K7 at `K7_SHAPES` beside the plain
+     sort and torch.nonzero (the library yardstick, which the port never
+     calls);
  10. entry points, each with every launch count set to 0 just before it
      and read just after, on the catalog already loaded:
      `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
@@ -284,7 +294,15 @@ REPLACES = {
                    ":94)",
     "dict_like": "none: duckdb_cubit_tpu/ops/expressions.py:428 (Like) "
                  "matches a regex per dictionary entry on the host",
+    "stream_compact": "none: the sort in duckdb_cubit_tpu/ops/kernels.py:233 "
+                      "(mask_to_indices)",
 }
+# K7 at the main path's shapes: (label, rows, density, capacity); the first
+# is the one the kernel table reports
+K7_SHAPES = [("SSB SF20 lineorder at Q1.1's density", 120_000_000, 0.019,
+              4_194_304),
+             ("SSB SF20 lineorder at 0.1%", 120_000_000, 0.001, 131_072),
+             ("TPC-H SF1 lineitem at 2%", 6_001_215, 0.02, 131_072)]
 # the SQL texts that evaluate LIKE, so K6 launches there and nowhere else
 K6_TEXTS = {2, 9, 13, 14, 16, 20}
 # LIKE patterns K6 is held to: the CPU test's, then `%%`, leading and
@@ -554,15 +572,16 @@ def cells_agree(got: list[list], want: list[list], doubles: list) -> bool:
 
 
 def kernel_calls(run) -> tuple:
-    """`run()` with the K1 and K2 wrappers recording their calls (a
+    """`run()` with the K1, K2 and K7 wrappers recording their calls (a
     recording run is not a counted main-path run; on the CPU the wrappers
     run their plain bodies).  -> (run's result, K1 calls, the (luts, keys)
-    of each K2 call)."""
+    of each K2 call, K7 calls)."""
     from duckdb_cubit_tpu_torch.ops import fused_scan as fs
-    from duckdb_cubit_tpu_torch.ops import probe
+    from duckdb_cubit_tpu_torch.ops import kernels, probe
 
-    k1, k2 = [], []
+    k1, k2, k7 = [], [], []
     real_k1, real_k2 = fs.fused_scan_sum, probe.monotone_gather_many
+    real_k7 = kernels.mask_to_indices
 
     def k1_recording(*args):
         k1.append(1)
@@ -571,12 +590,18 @@ def kernel_calls(run) -> tuple:
     def k2_recording(luts, keys):
         k2.append((list(luts), keys))
         return real_k2(luts, keys)
+
+    def k7_recording(*args):
+        k7.append(1)
+        return real_k7(*args)
     fs.fused_scan_sum, probe.monotone_gather_many = k1_recording, k2_recording
+    kernels.mask_to_indices = k7_recording
     try:
         result = run()
     finally:
         fs.fused_scan_sum, probe.monotone_gather_many = real_k1, real_k2
-    return result, len(k1), k2
+        kernels.mask_to_indices = real_k7
+    return result, len(k1), k2, len(k7)
 
 
 def tpch_plans(conn, sf: float, card: str) -> dict:
@@ -586,7 +611,9 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
     before it and read just after; its K1 and K2 launches must equal what
     the CPU run's calls of the two wrappers would launch (one K2 launch per
     MAX_LUTS luts of a call): kernel eligibility does not depend on the
-    device.  -> {"launches": {kernel: total}, "queries": [per-query row]}."""
+    device.  K7 launches once for each call of the CPU run's
+    `kernels.mask_to_indices`.
+    -> {"launches": {kernel: total}, "queries": [per-query row]}."""
     from duckdb_cubit_tpu_torch.api import connect
     from duckdb_cubit_tpu_torch.exec.result import to_strings
     from duckdb_cubit_tpu_torch.ops.probe import MAX_LUTS
@@ -596,7 +623,8 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
     t0 = time.perf_counter()
     cpu = connect(sf=sf, device="cpu")
     print(f"CPU catalog at SF{sf:g} loaded in {time.perf_counter() - t0:.2f} s")
-    totals = {"fused_scan_sum": 0, "monotone_gather": 0, "dict_like": 0}
+    totals = {"fused_scan_sum": 0, "monotone_gather": 0, "dict_like": 0,
+              "stream_compact": 0}
     out, card_rows = [], {}
     for n in sorted(queries.QUERIES):
         def run_card(n=n):
@@ -606,7 +634,7 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
         (rel, rows), counts = counted(run_card)
         retried = conn.executor.retry_count - retries
         t1 = time.perf_counter()
-        want, k1_calls, k2_calls = kernel_calls(
+        want, k1_calls, k2_calls, k7_calls = kernel_calls(
             lambda n=n: to_strings(queries.run(cpu.executor, n)))
         k2_luts = [len(luts) for luts, _ in k2_calls]
         cpu_s = time.perf_counter() - t1
@@ -616,13 +644,16 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
                                  f"run: {rows[:3]} vs {want[:3]}")
         k2_want = sum(-(-luts // MAX_LUTS) for luts in k2_luts)
         k1, k2 = counts["fused_scan_sum"], counts["monotone_gather"]
-        if k2 != k2_want or k1 != k1_calls:
+        k7 = counts["stream_compact"]
+        if k2 != k2_want or k1 != k1_calls or k7 != k7_calls:
             raise AssertionError(
-                f"Q{n} launched K1 {k1} / K2 {k2} times; its CPU run calls "
-                f"K1 {k1_calls} times and K2 with luts {k2_luts}")
+                f"Q{n} launched K1 {k1} / K2 {k2} / K7 {k7} times; its CPU "
+                f"run calls K1 {k1_calls} times, K2 with luts {k2_luts} and "
+                f"K7 {k7_calls} times")
         totals["fused_scan_sum"] += k1
         totals["monotone_gather"] += k2
         totals["dict_like"] += counts["dict_like"]
+        totals["stream_compact"] += k7
         times = []
         for _ in range(RUNS_PLANS + 2):
             t1 = time.perf_counter()
@@ -632,7 +663,7 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
         dev_ms, wall_ms, top = device_busy_share(run_card, 3)
         print(f"Q{n}: {len(rows)} rows, equal to the CPU run ({cpu_s:.2f} s "
               f"there); K2 launches {k2} (luts per call {k2_luts}), K1 "
-              f"launches {k1}, retries {retried}; median {median:.3f} ms "
+              f"launches {k1}, K7 launches {k7}, retries {retried}; median {median:.3f} ms "
               f"over {RUNS_PLANS} warm runs; profiled: device kernels "
               f"{dev_ms:.4f} ms of {wall_ms:.4f} ms wall, busy share "
               f"{dev_ms / wall_ms:.4f}  [{card}]")
@@ -643,6 +674,7 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
             print(f"    ... {len(rows) - 5} more rows")
         out.append({"query": n, "rows": len(rows), "k1_launches": k1,
                     "k2_launches": k2, "k2_luts": k2_luts,
+                    "k7_launches": k7,
                     "retries": retried, "median_ms": median,
                     "device_ms": dev_ms, "profiled_wall_ms": wall_ms})
         card_rows[n] = rows, doubles
@@ -663,7 +695,9 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
     by cell against the rows the card's builder of the same query gave
     (`plans["rows"]`, already held against the port's CPU run).  Each run
     has every launch count set to 0 just before it and read just after: K1
-    must launch exactly once in q6, K2 in q3 and q12.
+    must launch exactly once in q6, K2 in q3 and q12, K7 at least once for
+    each compacted stage input; the profiler's root of one text with a
+    compaction counts K7's launches as the wrapper does.
     -> {"launches": {kernel: total}, "queries": [per-query row]}."""
     from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
 
@@ -672,7 +706,8 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
 
     must = {6: {"fused_scan_sum": 1}, 3: {"monotone_gather": 1},
             12: {"monotone_gather": 1}}
-    totals = {"fused_scan_sum": 0, "monotone_gather": 0, "dict_like": 0}
+    totals = {"fused_scan_sum": 0, "monotone_gather": 0, "dict_like": 0,
+              "stream_compact": 0}
     out, text_rows = [], {}
     for n in sorted(SQL):
         def run(n=n):
@@ -695,9 +730,14 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
         if (k6 > 0) != (n in K6_TEXTS):
             raise AssertionError(f"SQL q{n} launched K6 {k6} times; K6 "
                                  f"launches in q{sorted(K6_TEXTS)} only")
+        k7 = counts["stream_compact"]
+        if k7 < compacted:
+            raise AssertionError(f"SQL q{n} compacted {compacted} stage "
+                                 f"inputs but launched K7 {k7} times")
         totals["fused_scan_sum"] += k1
         totals["monotone_gather"] += k2
         totals["dict_like"] += k6
+        totals["stream_compact"] += k7
         times = []
         # no truth table is kept: every run launches K6 again
         before = dl.launch_count
@@ -719,11 +759,12 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
               f"{b['median_ms']:.3f}); profiled: device kernels "
               f"{dev_ms:.4f} ms of {wall_ms:.4f} ms wall (builder "
               f"{b['device_ms']:.4f}); compacted stage inputs "
-              f"{compacted}; K6 {k6}  [{card}]")
+              f"{compacted}, K7 {k7}; K6 {k6}  [{card}]")
         for row in rows[:3]:
             print("   ", row)
         out.append({"query": n, "rows": len(rows), "k1_launches": k1,
                     "k2_launches": k2, "k6_launches": k6,
+                    "k7_launches": k7,
                     "retries": retried,
                     "median_ms": median, "device_ms": dev_ms,
                     "profiled_wall_ms": wall_ms,
@@ -734,6 +775,9 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
     print(f"22 TPC-H SQL texts equal their builders; launches {totals}; "
           f"retries {sum(q['retries'] for q in out)}")
     print(json.dumps({"tpch_sql": out}))
+    first = next(q for q in out if q["compacted"])
+    k7_on_root(conn, SQL[first["query"]], first["k7_launches"],
+               f"SQL q{first['query']}")
     return {"launches": totals, "queries": out, "rows": text_rows}
 
 
@@ -1465,6 +1509,7 @@ def k2_parity_cases():
 
 def kernel_modules():
     """kernel name -> (wrapper module, its CudaKernel, its count's name)."""
+    from duckdb_cubit_tpu_torch.ops import compact
     from duckdb_cubit_tpu_torch.ops import dict_like as dl
     from duckdb_cubit_tpu_torch.ops import fused_scan as fs
     from duckdb_cubit_tpu_torch.ops import gather_forms as gf
@@ -1477,7 +1522,8 @@ def kernel_modules():
             "q6_mask8_i32": (qv, qv.MASK8_KERNEL, "mask8_launch_count"),
             "table_gather": (gf, gf.TABLE_KERNEL, "table_launch_count"),
             "lane_gather": (gf, gf.LANE_KERNEL, "lane_launch_count"),
-            "dict_like": (dl, dl.KERNEL, "launch_count")}
+            "dict_like": (dl, dl.KERNEL, "launch_count"),
+            "stream_compact": (compact, compact.KERNEL, "launch_count")}
 
 
 def reset_counts():
@@ -2068,6 +2114,107 @@ def k6_timing(cat, device, flush, card) -> tuple[float, float, float]:
             print(f"the host regex walk it replaced: {walk_ms:.1f} ms at "
                   f"{label}, equal to K6's table  [{card}]")
     return out["q13 o_comment"]
+
+
+def k7_mask(n: int, density, seed: int, device) -> torch.Tensor:
+    """A seeded mask of n rows on the card: each row set with probability
+    `density`, or (`"last"`) only the last row."""
+    if density == "last":
+        mask = torch.zeros(n, dtype=torch.bool, device=device)
+        mask[-1] = True
+        return mask
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(n, generator=gen, device=device) < density
+
+
+def k7_check(label: str, mask: torch.Tensor, cap: int):
+    """K7 against the plain sort on one mask, bit for bit: ids, padding and
+    count; raises on a difference."""
+    from duckdb_cubit_tpu_torch.ops import compact
+
+    before = compact.launch_count
+    idx, count = compact.mask_to_indices(mask, cap)
+    want, want_count = compact.mask_to_indices_reference(mask, cap)
+    torch.cuda.synchronize()
+    if compact.launch_count != before + 1:
+        raise AssertionError(f"K7 {label}: the wrapper did not launch")
+    bad = int((idx != want).sum())
+    if bad or int(count) != int(want_count) or idx.dtype != torch.int64:
+        raise AssertionError(f"K7 {label}: {bad} slots differ, count "
+                             f"{int(count)} vs plain {int(want_count)}")
+    print(f"  K7 {label:44s} n={mask.shape[0]} cap={cap}: "
+          f"count {int(count)}, kernel == plain")
+
+
+def k7_parity(device) -> int:
+    """K7 against its plain body on the card, bit for bit (ids, padding and
+    count): the CPU test's edge cases, views 1-15 B off a 16-B boundary,
+    2**27 rows at three densities and `K7_SHAPES`.  -> 0 (raises on a
+    difference)."""
+    cases = [(1000, 1000, 0.1), (1000, 64, 0.02), (500, 2048, 0.5),
+             (300, 300, 0.0), (70_001, 65_536, 0.3), (70_001, 1024, 0.5),
+             (70_001, 131_072, 0.3), (70_001, 70_001, 1.0),
+             (70_001, 8192, 0.0), (70_001, 8192, "last"), (1, 8192, 1.0),
+             (16_385, 16_385, 0.7), (2**27, 262_144, 0.001),
+             (2**27, 4_194_304, 0.02), (2**27, 2**26, 0.5)]
+    for i, (n, cap, density) in enumerate(cases):
+        k7_check(f"density {density}", k7_mask(n, density, i, device), cap)
+    base = k7_mask(70_016, 0.4, 99, device)
+    for off in range(1, 16):
+        k7_check(f"mask[{off}:]", base[off:], 65_536)
+        k7_check(f"mask[{off}:{off + 9}]", base[off:off + 9], 16)
+    for i, (label, n, density, cap) in enumerate(K7_SHAPES):
+        k7_check(label, k7_mask(n, density, 100 + i, device), cap)
+    return 0
+
+
+def k7_timing(device, flush, card) -> dict:
+    """K7 at each of `K7_SHAPES` beside the plain sort, L2 flushed, with
+    its bound (`compact.compact_bytes` at 3.35 TB/s) and torch.nonzero, the
+    library call that computes the same ids (it waits for the host to size
+    its output; the port never calls it).  -> {label: (K7 ms, plain ms,
+    bound ms, nonzero ms)}."""
+    from duckdb_cubit_tpu_torch.ops import compact
+
+    out = {}
+    for i, (label, n, density, cap) in enumerate(K7_SHAPES):
+        mask = k7_mask(n, density, 200 + i, device)
+        print(f"K7 at {label} (n={n}, density {density}, cap={cap}):")
+        ms, plain_ms = turns(lambda: compact.mask_to_indices(mask, cap),
+                             lambda: compact.mask_to_indices_reference(
+                                 mask, cap), flush, card)
+        nbytes = compact.compact_bytes(n, cap)
+        bound = bound_ms(nbytes)
+        nonzero_ms = time_cold(lambda: torch.nonzero(mask), 30, flush)
+        print(f"K7 {ms:.4f} ms vs plain sort {plain_ms:.4f} ms and "
+              f"torch.nonzero {nonzero_ms:.4f} ms at {label} (L2 flushed); "
+              f"bound {bound:.4f} ms ({nbytes} B), {bound / ms:.3f} of it  "
+              f"[{card}]")
+        out[label] = ms, plain_ms, bound, nonzero_ms
+        del mask
+    return out
+
+
+def k7_on_root(conn, sql: str, want: int, label: str):
+    """One run of `sql` under torch.profiler: its `db.sql` root's
+    `k7_launches` must equal the wrapper's count, `want`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from duckdb_cubit_tpu_torch.exec import profiler as PROF
+
+    PROF.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            conn.sql(sql).strings()
+        roots = [s[5] for s in PROF.spans() if s[0] == "db.sql"]
+    finally:
+        PROF.reset()
+    got = [r["k7_launches"] for r in roots]
+    if got != [want] or want < 1:
+        raise AssertionError(f"{label}: k7_launches on the root {got}, the "
+                             f"wrapper counted {want}")
+    print(f"{label}: k7_launches on its db.sql root {got[0]}, as the "
+          f"wrapper counted")
 
 
 def counted(run, *must_launch):
@@ -2854,6 +3001,7 @@ def main() -> int:
     err["q6_words_i32"], err["q6_mask8_i32"] = k3k4_parity(device)
     err["table_gather"], err["lane_gather"] = k5_parity(device)
     err["dict_like"] = k6_parity(device)
+    err["stream_compact"] = k7_parity(device)
 
     phase(f"main path: connect(sf={args.sf:g}, device='cuda')")
     t0 = time.perf_counter()
@@ -2876,6 +3024,7 @@ def main() -> int:
     launches = {"dict_like": 0}
     rows, counts = counted(lambda: conn.sql(Q6).strings(), "fused_scan_sum")
     launches["fused_scan_sum"] = counts["fused_scan_sum"]
+    launches["stream_compact"] = counts["stream_compact"]
     if counts["dict_like"]:
         raise AssertionError("K6 launched in Q6, which has no LIKE")
     expect = oracle_of(cat, "Q6")[0][0]
@@ -2916,7 +3065,12 @@ def main() -> int:
                                  f"expected {len(k2_luts[name])}")
         if counts["dict_like"]:
             raise AssertionError(f"K6 launched in {name}, which has no LIKE")
+        if counts["stream_compact"] < compacted:
+            raise AssertionError(f"{name} compacted {compacted} stage inputs "
+                                 f"but launched K7 {counts['stream_compact']}"
+                                 f" times")
         launches["monotone_gather"] += k2_launches
+        launches["stream_compact"] += counts["stream_compact"]
     print(f"Q1, Q12, Q3 equal their numpy oracles; K2 launches "
           f"{launches['monotone_gather']}")
 
@@ -3038,6 +3192,10 @@ def main() -> int:
                                                         card)
     times["dict_like"] = k6_ms, k6_plain_ms
     library["dict_like"] = None
+    k7 = k7_timing(device, flush, card)
+    k7_ms, k7_plain_ms, bounds["stream_compact"], library["stream_compact"] = \
+        k7[K7_SHAPES[0][0]]
+    times["stream_compact"] = k7_ms, k7_plain_ms
     del flush
 
     phase("entry point: benchmarks.q6bench")
@@ -3100,9 +3258,10 @@ def main() -> int:
                       "dml": dml["launches"][name],
                       "mesh_dml": meshed["launches"][name]}
                for name in ("fused_scan_sum", "monotone_gather")}
-    by_path["dict_like"] = {"sql": launches["dict_like"],
-                            "tpch_plans": plans["launches"]["dict_like"],
-                            "tpch_sql": texts["launches"]["dict_like"]}
+    for name in ("dict_like", "stream_compact"):
+        by_path[name] = {"sql": launches[name],
+                         "tpch_plans": plans["launches"][name],
+                         "tpch_sql": texts["launches"][name]}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
 
@@ -3115,6 +3274,10 @@ def main() -> int:
              for name in REPLACES]
     k2_row = next(r for r in table if r["name"] == "monotone_gather")
     k2_row.update(luts_per_launch=k2_luts, passes=k2_passes)
+    k7_row = next(r for r in table if r["name"] == "stream_compact")
+    k7_row["shapes"] = {label: {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                                "library_ms": lib}
+                        for label, (ms, plain, bnd, lib) in k7.items()}
     for row in table:
         if row["name"] in by_path:
             row["launches_by_path"] = by_path[row["name"]]

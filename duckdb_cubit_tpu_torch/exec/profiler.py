@@ -62,7 +62,7 @@ MAX_SPANS = 2_000_000
 COUNTERS = ("prepare_hits", "prepare_misses", "k1_launches", "k2_launches",
             "retries", "compacted", "dict_entries", "cubit_merges",
             "rows_written", "k6_launches", "pk_probe_rows",
-            "sort_probe_rows")
+            "sort_probe_rows", "k7_launches")
 
 
 class _State:
@@ -222,7 +222,7 @@ def operator(op, profiler: "QueryProfiler | None" = None):
 
 def _counter_values(executor) -> list[int]:
     from ..index import cubit
-    from ..ops import dict_like, expressions, fused_scan, join, probe
+    from ..ops import compact, dict_like, expressions, fused_scan, join, probe
     from ..plan import physical
     from ..storage import dml
 
@@ -230,7 +230,8 @@ def _counter_values(executor) -> list[int]:
             fused_scan.launch_count, probe.launch_count,
             executor.retry_count, executor.compacted_boundaries,
             expressions.dict_entries, cubit.merge_count, dml.rows_written,
-            dict_like.launch_count, physical.pk_probe_rows, join.probe_rows]
+            dict_like.launch_count, physical.pk_probe_rows, join.probe_rows,
+            compact.launch_count]
 
 
 class _Statement(_Span):

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from . import compact
+
 # ----------------------------------------------------------------- hashing
 #
 # torch has no uint64 arithmetic, so the reference's uint64 hash runs on
@@ -256,26 +258,8 @@ def segment_minmax(gids, values, valid, num_groups: int, sentinel,
 # ------------------------------------------------------------- compaction
 
 
-def mask_to_indices(mask: torch.Tensor,
-                    capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Selection-vector materialization: row ids of set mask bits.
-
-    Returns (indices[capacity] int64, count 0-d int64 tensor); selected rows
-    come first in row order (a stable sort on the inverted mask), and
-    padding slots hold len(mask), an out-of-range sentinel.  The count stays
-    on the device: no host sync.
-    """
-    n = mask.shape[0]
-    inv = (~mask).to(torch.int32)
-    _, perm = torch.sort(inv, stable=True)
-    count = mask.to(torch.int64).sum()
-    if capacity > n:
-        perm = torch.cat([perm, torch.full((capacity - n,), n,
-                                           dtype=perm.dtype,
-                                           device=mask.device)])
-    take = perm[:capacity].to(torch.int64)
-    slots = torch.arange(capacity, device=mask.device)
-    return torch.where(slots < count, take, torch.full_like(take, n)), count
+# selection vectors: K7 on a card, the plain sort on the CPU (`compact.py`)
+mask_to_indices = compact.mask_to_indices
 
 
 def gather_columns(arrays: dict, indices: torch.Tensor) -> dict:

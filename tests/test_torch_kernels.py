@@ -11,10 +11,19 @@ from duckdb_cubit_tpu.ops import kernels as ref_k
 from duckdb_cubit_tpu_torch.ops import kernels as k
 
 
-@pytest.mark.parametrize("n,cap,density", [(1000, 1000, 0.1), (1000, 64, 0.02),
-                                           (500, 2048, 0.5), (300, 300, 0.0)])
+@pytest.mark.parametrize("n,cap,density", [
+    (1000, 1000, 0.1), (1000, 64, 0.02), (500, 2048, 0.5), (300, 300, 0.0),
+    # a length that is a multiple of neither 32 nor K7's 16 KB tile; more
+    # set rows than slots; more slots than rows; all set; all clear; one
+    # set row, the last
+    (70_001, 65_536, 0.3), (70_001, 1024, 0.5), (70_001, 131_072, 0.3),
+    (70_001, 70_001, 1.0), (70_001, 8192, 0.0), (70_001, 8192, "last")])
 def test_mask_to_indices_equal(n, cap, density):
-    mask = np.random.default_rng(n + cap).random(n) < density
+    if density == "last":
+        mask = np.zeros(n, dtype=bool)
+        mask[-1] = True
+    else:
+        mask = np.random.default_rng(n + cap).random(n) < density
     idx, count = k.mask_to_indices(torch.as_tensor(mask), cap)
     ridx, rcount = ref_k.mask_to_indices(jnp.asarray(mask), cap)
     assert idx.dtype == torch.int64 and count.ndim == 0
