@@ -23,7 +23,7 @@ Layer map (as in the reference):
   index/         - CUBIT bitmap index, direct-address primary-key index
   storage/       - columnar tables, dictionary encoding, zone maps, catalog
   tpch/          - TPC-H generator driver and loader
-  benchmarks/, bench.py - the reference's benchmark entry points on the card
+  benchmarks/    - the reference's kernel benchmarks (K3-K5) on the card
 """
 
 __version__ = "0.1.0"

@@ -30,8 +30,9 @@ the card.
   `db.sql`, opened by `statement`); None outside one.
 - `attrs`: a dict or None.  A span closed by an exception carries `error`,
   the exception's class name (the deadline's SIGALRM raises through them).
-  The root carries `kind` and the deltas of the engine's counters over the
-  statement (`COUNTERS`, plus `host_waits`: its `db.wait` spans).
+  The root carries `kind` and the deltas over the statement of every
+  counter of the table below, of the executor's `EXECUTOR_FIGURES`, and
+  `host_waits` (its `db.wait` spans).
 - At most `MAX_SPANS` are kept; `counters()["spans_dropped"]` counts the
   rest.
 - `py.gc`: each garbage collection while the recorder is on (one
@@ -40,6 +41,14 @@ the card.
 
 Every span name starts with `db.` or `py.`.  The recorder serves one
 thread: the engine runs its statements on one.
+
+**Counters.**  One table, name -> events since import, counts whether the
+recorder is on or off.  A module that counts declares its counters when it
+is imported (`declare`), so each reads 0 before its first event, and adds
+to them with `count` where the event happens; `read` and `snapshot` read
+them.  Each hand-written kernel's launches are `<name>_launches`, counted
+by `ops/cuda_build.CudaKernel.launch` alone.  This module imports no module
+of the package.
 """
 
 from __future__ import annotations
@@ -58,11 +67,35 @@ _Range = getattr(getattr(torch._C, "_profiler", None), "_RecordFunctionFast",
 
 MAX_SPANS = 2_000_000
 
-# the engine's counters a statement's root records as deltas
-COUNTERS = ("prepare_hits", "prepare_misses", "k1_launches", "k2_launches",
-            "retries", "compacted", "dict_entries", "cubit_merges",
-            "rows_written", "k6_launches", "pk_probe_rows",
-            "sort_probe_rows", "k7_launches")
+# the counter table: name -> events since import
+_COUNTS: dict[str, int] = {}
+# the per-connection figures a statement's root records beside the table's
+# counters: (root attribute, the executor's attribute)
+EXECUTOR_FIGURES = (("prepare_hits", "prepare_hits"),
+                    ("prepare_misses", "prepare_misses"),
+                    ("retries", "retry_count"),
+                    ("compacted", "compacted_boundaries"))
+
+
+def declare(*names: str):
+    """Add counters to the table at 0 (a declared one keeps its count)."""
+    for name in names:
+        _COUNTS.setdefault(name, 0)
+
+
+def count(name: str, n: int = 1):
+    """Add `n` to the declared counter `name`."""
+    _COUNTS[name] += n
+
+
+def read(name: str) -> int:
+    """One counter's events since import."""
+    return _COUNTS[name]
+
+
+def snapshot() -> dict:
+    """Every counter's events since import, as a new dict."""
+    return dict(_COUNTS)
 
 
 class _State:
@@ -89,7 +122,8 @@ def spans() -> list[tuple]:
 def counters() -> dict:
     """The recorded statements' counter deltas summed, with the number of
     spans kept (`spans`) and dropped past the bound (`spans_dropped`)."""
-    out = dict.fromkeys(COUNTERS + ("host_waits",), 0)
+    out = dict.fromkeys([*_COUNTS, *(k for k, _ in EXECUTOR_FIGURES),
+                         "host_waits"], 0)
     for s in _S.spans:
         if s[0] == "db.sql" and s[5]:
             for k in out:
@@ -220,18 +254,12 @@ def operator(op, profiler: "QueryProfiler | None" = None):
     return _Span("db.op." + op.name)
 
 
-def _counter_values(executor) -> list[int]:
-    from ..index import cubit
-    from ..ops import compact, dict_like, expressions, fused_scan, join, probe
-    from ..plan import physical
-    from ..storage import dml
-
-    return [executor.prepare_hits, executor.prepare_misses,
-            fused_scan.launch_count, probe.launch_count,
-            executor.retry_count, executor.compacted_boundaries,
-            expressions.dict_entries, cubit.merge_count, dml.rows_written,
-            dict_like.launch_count, physical.pk_probe_rows, join.probe_rows,
-            compact.launch_count]
+def _figures(executor) -> dict:
+    """The counter table with the executor's figures beside it."""
+    out = dict(_COUNTS)
+    for key, attr in EXECUTOR_FIGURES:
+        out[key] = getattr(executor, attr)
+    return out
 
 
 class _Statement(_Span):
@@ -247,14 +275,13 @@ class _Statement(_Span):
         self.outer = _S.query
         _S.queries += 1
         _S.query = _S.queries
-        self.before = _counter_values(self.executor)
+        self.before = _figures(self.executor)
         return super().__enter__()
 
     def __exit__(self, exc_type, exc, tb):
         st = _S
-        after = _counter_values(self.executor)
-        self.set(**{k: a - b for k, a, b in zip(COUNTERS, after,
-                                                 self.before)})
+        after = _figures(self.executor)
+        self.set(**{k: v - self.before.get(k, 0) for k, v in after.items()})
         if self.index >= 0:
             self.set(host_waits=sum(s[0] == "db.wait"
                                     for s in st.spans[self.index + 1:]))

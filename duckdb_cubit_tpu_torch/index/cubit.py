@@ -32,10 +32,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..exec import profiler as PROF
 from ..ops import bitmap as bm
 
 # merges that published buffered deltas (`CubitIndex.merge`)
-merge_count = 0
+PROF.declare("cubit_merges")
 # an index of at most this many bins packs a mask a bin at build
 PACK_BINS = 64
 
@@ -315,10 +316,9 @@ class CubitIndex:
         bit are both XOR-with-bit because the bit is known set/unset.  A new
         words tensor is built, so readers of the previous epoch keep theirs.
         """
-        global merge_count
         if not self._pending:
             return self.epoch
-        merge_count += 1
+        PROF.count("cubit_merges")
         rows = np.array([p[0] for p in self._pending], dtype=np.int64)
         olds = np.array([p[1] for p in self._pending], dtype=np.int64)
         news = np.array([p[2] for p in self._pending], dtype=np.int64)

@@ -31,13 +31,10 @@ TILE_BYTES = 16384
 MAX_ROWS = 2**31 - 1
 
 KERNEL = CudaKernel(
-    "stream_compact.cu", "stream_compact_launch",
+    "k7", "stream_compact.cu", "stream_compact_launch",
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_void_p])
-
-# launches of the CUDA kernel (never counts the plain body)
-launch_count = 0
 
 
 def _check(mask: torch.Tensor):
@@ -78,7 +75,6 @@ def status_words(mask: torch.Tensor) -> int:
 def mask_to_indices(mask: torch.Tensor, capacity: int):
     """Row ids of the set rows of a bool mask. -> (indices[capacity] int64,
     count 0-d int64); see the module's docstring."""
-    global launch_count
     _check(mask)
     if mask.device.type == "cpu":
         return mask_to_indices_reference(mask, capacity)
@@ -94,7 +90,6 @@ def mask_to_indices(mask: torch.Tensor, capacity: int):
     KERNEL.launch(mask.device, mask.data_ptr(), n, capacity, out.data_ptr(),
                   status.data_ptr(), status.shape[0], count.data_ptr(),
                   sm_count(mask.device))
-    launch_count += 1
     return out, count
 
 

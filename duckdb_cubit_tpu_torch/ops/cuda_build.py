@@ -7,6 +7,11 @@ its own library in the git-ignored `_build/` (again only when the source or
 a shared header is newer than the library), and ctypes binds the entry
 point.  Nothing here runs when a module is imported: the CPU tests import
 every module on a machine without nvcc.
+
+Each kernel has a short name (`k1`, `k2`, ...): `CudaKernel.launch` counts
+its launches in the profiler's counter table as `<name>_launches`, and
+every kernel made is listed in `KERNELS`.  A plain torch body never reaches
+`launch`, so it counts nothing.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import tempfile
 import threading
 
 import torch
+
+from ..exec import profiler as PROF
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -40,23 +47,32 @@ def _nvcc() -> str:
     return found
 
 
+# every CudaKernel made, in the order made
+KERNELS: list["CudaKernel"] = []
+
+
 class CudaKernel:
-    """One `csrc/<name>.cu` source, its library and its bound entry point.
+    """One `csrc/<source>` file, its library and its bound entry point.
 
-    `symbol` is the C launcher's name and `argtypes` its ctypes signature
-    (`c_void_p` for every pointer and the stream); the launcher returns
-    cudaGetLastError() after the launch as an int."""
+    `name` is the kernel's short name (`k1`): its launches are the counter
+    `<name>_launches`.  `symbol` is the C launcher's name and `argtypes` its
+    ctypes signature (`c_void_p` for every pointer and the stream); the
+    launcher returns cudaGetLastError() after the launch as an int."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
-        stem = os.path.splitext(source)[0]
+    def __init__(self, name: str, source: str, symbol: str, argtypes: list):
+        self.name = name
+        self.stem = os.path.splitext(source)[0]
+        self.counter = f"{name}_launches"
         self.source = os.path.join(CSRC_DIR, source)
-        self.lib_path = os.path.join(BUILD_DIR, f"lib{stem}.so")
+        self.lib_path = os.path.join(BUILD_DIR, f"lib{self.stem}.so")
         self.symbol = symbol
         self.argtypes = argtypes
         # nvcc's output of the last build (ptxas register / spill report)
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
+        PROF.declare(self.counter)
+        KERNELS.append(self)
 
     def build(self) -> str:
         """Compile the library if it is missing or older than its source or
@@ -95,8 +111,9 @@ class CudaKernel:
 
     def launch(self, device: torch.device, *args) -> None:
         """Call the launcher with `args` and the current stream of `device`
-        (its last argument); raise if the launch was refused.  The device
-        context is entered only when `device` is not the current one."""
+        (its last argument); raise if the launch was refused, else count it.
+        The device context is entered only when `device` is not the current
+        one."""
         fn = self.function()
         index = _index(device)
         if index == torch.cuda.current_device():
@@ -106,6 +123,7 @@ class CudaKernel:
                 rc = fn(*args, _raw_stream(index))
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
+        PROF.count(self.counter)
 
 
 def _index(device: torch.device) -> int:

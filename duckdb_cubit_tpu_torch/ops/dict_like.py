@@ -39,7 +39,7 @@ import torch
 from .cuda_build import CudaKernel
 
 KERNEL = CudaKernel(
-    "dict_like.cu", "dict_like_launch",
+    "k6", "dict_like.cu", "dict_like_launch",
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p])
@@ -49,9 +49,6 @@ MAX_SEGMENTS = 64
 MAX_PATTERN_BYTES = 1024
 # rows of the plain version's (rows, positions, segment) comparisons at once
 REFERENCE_CHUNK = 1 << 16
-
-# launches of the CUDA kernel (never counts the plain body)
-launch_count = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,7 +220,6 @@ def _launch_args(pat: LikePattern) -> tuple:
 def like_table(entries: torch.Tensor, pattern: str) -> torch.Tensor:
     """-> (n,) bool: entry i of `entries` ((n, w) uint8) matches `pattern`
     under SQL LIKE."""
-    global launch_count
     _check(entries)
     pat = compile_pattern(pattern)
     if entries.device.type == "cpu":
@@ -239,7 +235,6 @@ def like_table(entries: torch.Tensor, pattern: str) -> torch.Tensor:
                   seg_bytes.ctypes.data, seg_wild.ctypes.data,
                   seg_len.ctypes.data, len(pat.segments), pat.flags,
                   out.data_ptr())
-    launch_count += 1
     return out
 
 

@@ -39,7 +39,7 @@ from . import dict_like as DL
 
 # dictionary entries evaluated (LIKE on the device; IN truth tables,
 # substring, the string maps and concat's products on the host)
-dict_entries = 0
+PROF.declare("dict_entries")
 
 
 @dataclasses.dataclass
@@ -407,8 +407,7 @@ class NotOp(Expr):
 
 def _walked(n: int) -> int:
     """Count `n` dictionary entries walked on the host (`dict_entries`)."""
-    global dict_entries
-    dict_entries += n
+    PROF.count("dict_entries", n)
     return n
 
 

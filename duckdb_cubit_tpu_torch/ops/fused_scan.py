@@ -30,12 +30,9 @@ from .cuda_build import CudaKernel, sm_count
 MODE_SINGLE, MODE_PAIR, MODE_PACKED = 0, 1, 2
 
 KERNEL = CudaKernel(
-    "fused_scan_sum.cu", "fused_scan_sum_launch",
+    "k1", "fused_scan_sum.cu", "fused_scan_sum_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-
-# launches of the CUDA kernel (never counts the plain body)
-launch_count = 0
 
 
 def pack_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -94,7 +91,6 @@ def fused_scan_sum(words: torch.Tensor, payloads: list,
 
     words: int32 (>= ceil(n/32),) bitvector; payloads: one or two int32
     (n,) columns, or one packed column when `packed`."""
-    global launch_count
     mode = _check(words, payloads, packed)
     if words.device.type == "cpu":
         return fused_scan_sum_reference(words, payloads, packed)
@@ -107,7 +103,6 @@ def fused_scan_sum(words: torch.Tensor, payloads: list,
     b = payloads[1] if mode == MODE_PAIR else payloads[0]
     KERNEL.launch(words.device, words.data_ptr(), a.data_ptr(), b.data_ptr(),
                   n, mode, out.data_ptr(), sm_count(words.device))
-    launch_count += 1
     return out
 
 

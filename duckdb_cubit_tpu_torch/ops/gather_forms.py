@@ -44,13 +44,10 @@ LANES = 128
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-TABLE_KERNEL = CudaKernel("table_gather.cu", "table_gather_launch",
+TABLE_KERNEL = CudaKernel("k5a", "table_gather.cu", "table_gather_launch",
                           _ARGTYPES)
-LANE_KERNEL = CudaKernel("lane_gather.cu", "lane_gather_launch", _ARGTYPES)
-
-# launches of each CUDA kernel (never counts the plain bodies)
-table_launch_count = 0
-lane_launch_count = 0
+LANE_KERNEL = CudaKernel("k5b", "lane_gather.cu", "lane_gather_launch",
+                         _ARGTYPES)
 
 
 def _check_int32(name: str, t: torch.Tensor, device):
@@ -129,26 +126,18 @@ def _device_body(kernel, table, table_size, idx, n):
 def table_gather(tab, idx):
     """K5a: out = tab.flat[idx] (any shapes, contiguous int32); -> (out
     shaped like idx, bad = count of indices outside [0, tab.numel()))."""
-    global table_launch_count
     _check_table(tab, idx)
     if idx.device.type == "cpu":
         return table_gather_reference(tab, idx)
-    result = _device_body(TABLE_KERNEL, tab, tab.numel(), idx, idx.numel())
-    if idx.numel():
-        table_launch_count += 1
-    return result
+    return _device_body(TABLE_KERNEL, tab, tab.numel(), idx, idx.numel())
 
 
 def lane_gather(tab2, lane_idx):
     """K5b: out[r, c] = tab2[r % rows, lane_idx[r, c]] for (rows, 128) and
     (R, 128) int32; -> (out, bad = count of lane indices outside
     [0, 128))."""
-    global lane_launch_count
     _check_lanes(tab2, lane_idx)
     if lane_idx.device.type == "cpu":
         return lane_gather_reference(tab2, lane_idx)
-    result = _device_body(LANE_KERNEL, tab2, tab2.shape[0], lane_idx,
-                          lane_idx.shape[0])
-    if lane_idx.shape[0]:
-        lane_launch_count += 1
-    return result
+    return _device_body(LANE_KERNEL, tab2, tab2.shape[0], lane_idx,
+                        lane_idx.shape[0])

@@ -37,9 +37,8 @@ from .kernels import lexsort
 
 _I64_MAX = 2**63 - 1
 _I64_MIN = -(2**63)
-# probe rows the sort-merge probe took (`probe`), read as the
-# `sort_probe_rows` counter of a statement's root span
-probe_rows = 0
+# probe rows the sort-merge probe took (`probe`)
+PROF.declare("sort_probe_rows")
 
 
 @dataclasses.dataclass
@@ -85,9 +84,8 @@ def build(keys: torch.Tensor, valid: torch.Tensor) -> BuildSide:
 def probe(bs: BuildSide, probe_keys: torch.Tensor,
           probe_valid: torch.Tensor) -> torch.Tensor:
     """-> int32 unique-entry index per probe row, -1 on a miss."""
-    global probe_rows
     n = probe_keys.shape[0]
-    probe_rows += n
+    PROF.count("sort_probe_rows", n)
     with PROF.span("db.join.sort_probe") as sp:
         sp.set(rows=n)
         return _probe(bs, probe_keys, probe_valid)

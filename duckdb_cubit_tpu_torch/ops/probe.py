@@ -39,13 +39,10 @@ MIN_KEYS = 32768
 MAX_LUTS = 8
 
 KERNEL = CudaKernel(
-    "monotone_gather.cu", "monotone_gather_many_launch",
+    "k2", "monotone_gather.cu", "monotone_gather_many_launch",
     [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_longlong,
      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-
-# launches of the CUDA kernel (never counts the plain body)
-launch_count = 0
 
 
 def plan_monotone_gather(n_keys: int, lut_size: int) -> bool:
@@ -96,12 +93,10 @@ def monotone_gather_reference(lut: torch.Tensor, keys: torch.Tensor):
 
 def _launch(luts, keys, outs, overflow, n: int):
     """One kernel launch over at most MAX_LUTS luts into rows of `outs`."""
-    global launch_count
     ptrs = (ctypes.c_void_p * MAX_LUTS)(*[t.data_ptr() for t in luts])
     KERNEL.launch(keys.device, ptrs, len(luts), luts[0].shape[0],
                   keys.data_ptr(), n, outs.data_ptr(), outs.stride(0),
                   overflow.data_ptr(), sm_count(keys.device))
-    launch_count += 1
 
 
 def monotone_gather_many(luts, keys: torch.Tensor):

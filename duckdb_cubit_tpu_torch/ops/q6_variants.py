@@ -39,14 +39,10 @@ from .cuda_build import CudaKernel, sm_count, stream_scratch
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p]
-WORDS_KERNEL = CudaKernel("q6_words_i32.cu", "q6_words_i32_launch",
+WORDS_KERNEL = CudaKernel("k3", "q6_words_i32.cu", "q6_words_i32_launch",
                           _ARGTYPES)
-MASK8_KERNEL = CudaKernel("q6_mask8_i32.cu", "q6_mask8_i32_launch",
+MASK8_KERNEL = CudaKernel("k4", "q6_mask8_i32.cu", "q6_mask8_i32_launch",
                           _ARGTYPES)
-
-# launches of each CUDA kernel (never counts the plain bodies)
-words_launch_count = 0
-mask8_launch_count = 0
 
 
 def _wrap(x: torch.Tensor) -> torch.Tensor:
@@ -131,27 +127,19 @@ def q6_words_i32(words, a, b) -> torch.Tensor:
     """K3: -> (2,) int32 [sum(prod >> 16), sum(prod & 0xFFFF)] modulo 2**32,
     prod = int32(a * bit * b).  words: int32 (n/32,) bit patterns; a, b:
     int32 (n,) with n = 32 * len(words), each starting 16-B aligned."""
-    global words_launch_count
     _check_words(words, a, b)
     if words.device.type == "cpu":
         return q6_words_i32_reference(words, a, b)
-    out = _device_body(WORDS_KERNEL, words, a, b, words.shape[0])
-    if words.shape[0]:
-        words_launch_count += 1
-    return out
+    return _device_body(WORDS_KERNEL, words, a, b, words.shape[0])
 
 
 def q6_mask8_i32(mask, a, b) -> torch.Tensor:
     """K4: the same pair with prod = int32(a * int32(mask) * b).  mask:
     int8 (n,), any byte; a, b: int32 (n,); all three 16-B aligned."""
-    global mask8_launch_count
     _check_mask8(mask, a, b)
     if mask.device.type == "cpu":
         return q6_mask8_i32_reference(mask, a, b)
-    out = _device_body(MASK8_KERNEL, mask, a, b, mask.shape[0])
-    if mask.shape[0]:
-        mask8_launch_count += 1
-    return out
+    return _device_body(MASK8_KERNEL, mask, a, b, mask.shape[0])
 
 
 def combine(hi_lo: torch.Tensor) -> torch.Tensor:

@@ -50,9 +50,8 @@ from ..parallel import shard as SH
 from ..storage.table import Table, pad_count
 from ..types import BOOL, DOUBLE, INT64, DataType, TypeId
 
-# probe rows that took a key-to-row table (`HashJoin._pk_probe`), read as
-# the `pk_probe_rows` counter of a statement's root span
-pk_probe_rows = 0
+# probe rows that took a key-to-row table (`HashJoin._pk_probe`)
+PROF.declare("pk_probe_rows")
 
 
 @dataclasses.dataclass
@@ -720,8 +719,7 @@ class HashJoin(PhysicalOperator):
         kcol = probe_rel.columns[self.probe_keys[0]]
         route = "k2" if self._kernel_probe_eligible(
             ctx, kcol, probe_rel, pkidx.span, build_rel) else "gather"
-        global pk_probe_rows
-        pk_probe_rows += probe_rel.capacity
+        PROF.count("pk_probe_rows", probe_rel.capacity)
         with PROF.span("db.join.pk_probe") as sp:
             sp.set(rows=probe_rel.capacity, slots=pkidx.span, route=route)
             if route == "gather":

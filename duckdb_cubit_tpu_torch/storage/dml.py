@@ -50,7 +50,7 @@ class DmlError(RuntimeError):
 
 
 # rows appended, deleted or updated
-rows_written = 0
+PROF.declare("rows_written")
 
 
 def _np_dtype(t: torch.Tensor) -> np.dtype:
@@ -142,9 +142,8 @@ def append_rows(table: Table, rows: dict[str, np.ndarray],
     its stored codes remapped), `db.dml.device` (each column's new host
     mirror, device tensor and NULL mask), `db.dml.cubit` (CUBIT deltas,
     merges and rebuilds), `db.dml.pk` and `db.dml.stats`."""
-    global rows_written
     n_new = len(next(iter(rows.values())))
-    rows_written += n_new
+    PROF.count("rows_written", n_new)
     first = table.num_rows
     new_count = first + n_new
     grow = new_count > table.global_capacity
@@ -329,10 +328,9 @@ def _refresh_stats(table: Table, columns=None):
 def delete_rows(table: Table, row_ids: np.ndarray):
     """Mark rows deleted; each CUBIT index drops their bits (one merge per
     index)."""
-    global rows_written
     _ensure_deleted_mask(table)
     row_ids = np.asarray(row_ids, dtype=np.int64)
-    rows_written += len(row_ids)
+    PROF.count("rows_written", len(row_ids))
     local, _ = _local_rows(table, row_ids)
     deleted = table.deleted.clone()
     deleted[local] = True
@@ -347,12 +345,11 @@ def update_column(table: Table, column: str, row_ids: np.ndarray,
                   new_values: np.ndarray, new_nulls: np.ndarray | None = None):
     """Point updates of one column (CUBIT's update-conscious path).
     `new_nulls` marks the rows set to NULL."""
-    global rows_written
     col = table.columns[column]
     if col.dictionary is not None:
         raise DmlError("VARCHAR update requires re-encoding (not in round 1)")
     row_ids = np.asarray(row_ids, dtype=np.int64)
-    rows_written += len(row_ids)
+    PROF.count("rows_written", len(row_ids))
     old = _host_at(col, row_ids)
     new_values = np.asarray(new_values)
     idx = table.indexes.get(column)

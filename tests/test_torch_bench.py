@@ -1,12 +1,10 @@
-"""The port's benchmark entry points end to end on the CPU: `bench`
-(Q6 variants through K1's wrapper, the l_orderkey -> orders probes),
+"""The port's kernel benchmarks end to end on the CPU:
 `benchmarks.q6bench` (the six Q6 forms) and `benchmarks.gather_probe` (the
 five gather forms), at SF0.01 and the scripts' own N, so that every check
-they make runs (on a CPU device they time nothing).  Sums and row ids are
-compared exactly.
+they make runs (on a CPU device they time nothing).  Sums are compared
+exactly.
 """
 
-import json
 import os
 import subprocess
 import sys
@@ -15,10 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from duckdb_cubit_tpu_torch import bench
 from duckdb_cubit_tpu_torch.api import connect
 from duckdb_cubit_tpu_torch.benchmarks import gather_probe, q6bench
-from duckdb_cubit_tpu_torch.ops import fused_scan as fs
 from duckdb_cubit_tpu_torch.ops import q6_variants as qv
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,36 +23,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def conn():
     return connect(sf=0.01, device="cpu")
-
-
-def test_bench_runs_its_checks_and_reports_sections(conn, monkeypatch):
-    calls = []
-    real = fs.fused_scan_sum
-    monkeypatch.setattr(fs, "fused_scan_sum",
-                        lambda *a: calls.append(a) or real(*a))
-    line = bench.run(conn.catalog, "cpu", 0.01)
-    assert line["metric"] == "tpch_sf0.01_q6_e2e_rows_per_s"
-    q6 = line["sections"]["q6_bitmap_scan"]
-    # the canonical variant against Q6 through a default connection (which
-    # decodes row ids at SF0.01 and never reaches K1's wrapper)
-    assert [[q6["canonical_q6"]]] == conn.sql(bench.Q6).strings() == \
-        [["1193053.2253"]]
-    assert len(calls) >= bench.Q6_VARIANTS
-    assert q6["packed"] and q6["e2e_bytes_per_row"] == 4.875
-    assert set(line["sections"]) == {"q6_bitmap_scan", "join_probe",
-                                     "join_probe_xla", "join_probe_csr"}
-    assert line["value"] is None    # nothing timed off the card
-    json.dumps(line)
-
-
-def test_q6_variant_filters_are_the_references():
-    filters = list(bench.q6_variant_filters())
-    assert len(filters) == 32
-    from duckdb_cubit_tpu_torch.types import date_to_days
-    assert filters[bench.CANONICAL] == (
-        ("l_shipdate", date_to_days("1994-01-01"),
-         date_to_days("1994-12-31")),
-        ("l_discount", 5, 7), ("l_quantity", None, 2399))
 
 
 def test_q6bench_runs_its_checks(conn):
@@ -95,7 +61,7 @@ def test_gather_probe_runs_its_checks():
     assert summary["n"] == gather_probe.N and summary["forms"] == {}
 
 
-@pytest.mark.parametrize("module", ["bench", "benchmarks.q6bench",
+@pytest.mark.parametrize("module", ["benchmarks.q6bench",
                                     "benchmarks.gather_probe"])
 def test_entry_points_refuse_to_run_without_a_card(module, monkeypatch):
     import importlib
@@ -108,7 +74,6 @@ def test_entry_points_refuse_to_run_without_a_card(module, monkeypatch):
 def test_drivers_import_without_jax():
     script = (
         "import sys\n"
-        "import duckdb_cubit_tpu_torch.bench\n"
         "import duckdb_cubit_tpu_torch.benchmarks.q6bench\n"
         "import duckdb_cubit_tpu_torch.benchmarks.gather_probe\n"
         "import duckdb_cubit_tpu_torch.ops.join\n"

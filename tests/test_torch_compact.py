@@ -8,16 +8,19 @@ import numpy as np
 import pytest
 import torch
 
+from duckdb_cubit_tpu_torch.exec import profiler as PROF
 from duckdb_cubit_tpu_torch.ops import compact, kernels
 
 # (rows, capacity, density): the CPU test's edge cases, then masks of 2**27
-# rows at SSB-like densities
+# rows at SSB-like densities, then the main path's shapes: SSB SF20's
+# lineorder at Q1.1's density and at 0.1%, TPC-H SF1's lineitem at 2%
 CASES = [(1000, 1000, 0.1), (1000, 64, 0.02), (500, 2048, 0.5),
          (300, 300, 0.0), (70_001, 65_536, 0.3), (70_001, 1024, 0.5),
          (70_001, 131_072, 0.3), (70_001, 70_001, 1.0), (70_001, 8192, 0.0),
          (70_001, 8192, "last"), (1, 8192, 1.0), (16_385, 16_385, 0.7)]
 LARGE = [(2**27, 262_144, 0.001), (2**27, 4_194_304, 0.02),
-         (2**27, 2**26, 0.5)]
+         (2**27, 2**26, 0.5), (120_000_000, 4_194_304, 0.019),
+         (120_000_000, 131_072, 0.001), (6_001_215, 131_072, 0.02)]
 
 
 def _mask(n: int, density, seed: int) -> np.ndarray:
@@ -42,9 +45,9 @@ def test_mask_to_indices_is_the_wrapper():
 @pytest.mark.parametrize("n,cap,density", CASES[4:])
 def test_cpu_runs_plain_body_and_counts_no_launch(n, cap, density):
     mask = _mask(n, density, n + cap)
-    before = compact.launch_count
+    before = PROF.read("k7_launches")
     idx, count = compact.mask_to_indices(torch.as_tensor(mask), cap)
-    assert compact.launch_count == before
+    assert PROF.read("k7_launches") == before
     want, total = _oracle(mask, cap)
     assert idx.dtype == torch.int64 and count.dtype == torch.int64
     assert count.ndim == 0 and int(count) == total
@@ -83,10 +86,10 @@ def cuda_device():
 
 
 def _equal_on_card(mask: torch.Tensor, cap: int):
-    before = compact.launch_count
+    before = PROF.read("k7_launches")
     idx, count = compact.mask_to_indices(mask, cap)
     torch.cuda.synchronize()
-    assert compact.launch_count == before + 1
+    assert PROF.read("k7_launches") == before + 1
     want, want_count = compact.mask_to_indices_reference(mask, cap)
     assert idx.dtype == torch.int64 and count.ndim == 0
     assert int(count) == int(want_count)
@@ -101,7 +104,7 @@ def test_cuda_kernel_matches_plain_body(cuda_device, n, cap, density):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("offset", range(1, 16))
 def test_cuda_kernel_on_views_off_a_16_byte_boundary(cuda_device, offset):
     base = torch.as_tensor(_mask(70_001 + offset, 0.4, offset),
                            device=cuda_device)
@@ -110,13 +113,12 @@ def test_cuda_kernel_on_views_off_a_16_byte_boundary(cuda_device, offset):
 
 
 def test_root_span_counts_the_launches(monkeypatch):
-    """`k7_launches` on each `db.sql` root is the rise of the wrapper's
-    count: on the CPU none; with a stand-in that counts as a launch would,
-    one for each compaction of the statement."""
+    """`k7_launches` on each `db.sql` root is the rise of the counter: on
+    the CPU none; with a stand-in that counts as a launch would, one for
+    each compaction of the statement."""
     from torch.profiler import ProfilerActivity, profile
 
     from duckdb_cubit_tpu_torch.api import Connection
-    from duckdb_cubit_tpu_torch.exec import profiler as PROF
     from duckdb_cubit_tpu_torch.tpch.load import load_catalog
     from duckdb_cubit_tpu_torch.tpch.sql_queries import SQL
 
@@ -125,7 +127,7 @@ def test_root_span_counts_the_launches(monkeypatch):
 
     def counting(mask, cap):
         calls.append(cap)
-        compact.launch_count += 1
+        PROF.count("k7_launches")
         return compact.mask_to_indices_reference(mask, cap)
 
     PROF.reset()

@@ -3,18 +3,25 @@
 The JAX side runs the Pallas kernel in interpret mode on the CPU, fed the
 bit-plane words of a numpy mask; the port's plain body takes the same mask in
 its own word order (`bitmap.pack_mask`).  Integer sums: exact equality.  The
-CUDA case compares the hand-written kernel with the plain body on the card
-and skips where there is none.
+CUDA cases compare the hand-written kernel with the plain body on the card
+and skip where there is none; they need no jax, which a card's machine may
+not have.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from duckdb_cubit_tpu.ops import pallas_kernels as pk
+from duckdb_cubit_tpu_torch.exec import profiler as PROF
 from duckdb_cubit_tpu_torch.ops import bitmap as bm
 from duckdb_cubit_tpu_torch.ops import fused_scan as fs
+
+try:
+    import jax.numpy as jnp
+
+    from duckdb_cubit_tpu.ops import pallas_kernels as pk
+except ImportError:     # no jax: only the cuda cases can run
+    jnp = pk = None
 
 
 def _make(n, seed=0, density=0.03, amax=10_500_000, bmax=10):
@@ -69,9 +76,9 @@ def test_reference_body_matches_pallas_interpret(n, density, ncols, packed):
 def test_wrapper_on_cpu_runs_plain_body_and_counts_no_launch():
     mask, a, b = _make(8192 * 9 + 77, seed=3)
     words, payloads = _port_inputs(mask, [a, b], True)
-    before = fs.launch_count
+    before = PROF.read("k1_launches")
     got = fs.fused_scan_sum(words, payloads, True)
-    assert fs.launch_count == before
+    assert PROF.read("k1_launches") == before
     assert int(got) == int(fs.fused_scan_sum_reference(words, payloads, True))
 
 
@@ -142,21 +149,48 @@ def cuda_device():
     return torch.device("cuda")
 
 
+MODES = [(1, False), (2, False), (2, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ncols,packed", [(1, False), (2, False), (2, True)])
-def test_cuda_kernel_matches_plain_body(cuda_device, ncols, packed):
-    mask, a, b = _make(8192 * 9 + 77, seed=2)
+@pytest.mark.parametrize("ncols,packed", MODES)
+@pytest.mark.parametrize("n,density", [
+    (8192 * 9 + 77, 0.03),
+    *[(n, d) for n in (8192 * 9, 8192 * 9 + 77, 1 << 20)
+      for d in (0.0, 1.0, 0.03) if (n, d) != (8192 * 9 + 77, 0.03)]])
+def test_cuda_kernel_matches_plain_body(cuda_device, n, density, ncols,
+                                        packed):
+    """Every mode on ragged and aligned lengths, empty, full and sparse
+    masks; each call is one launch."""
+    mask, a, b = _make(n, seed=2, density=density)
     words, payloads = _port_inputs(mask, [a, b][:ncols], packed, cuda_device)
-    before = fs.launch_count
+    before = PROF.read("k1_launches")
     got = fs.fused_scan_sum(words, payloads, packed)
     torch.cuda.synchronize()
-    assert fs.launch_count == before + 1
+    assert PROF.read("k1_launches") == before + 1
     assert int(got) == int(fs.fused_scan_sum_reference(words, payloads, packed))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ncols,packed", [(1, False), (2, False), (2, True)])
-@pytest.mark.parametrize("n", [31, 32 * 33 + 5, 1024 * 7 + 999, 1 << 20])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_kernel_sums_past_2_31(cuda_device, packed):
+    """Products near 2**31 over 2**24 rows, half of them set: the sum needs
+    int64."""
+    rng = np.random.default_rng(24)
+    n = 1 << 24
+    mask = rng.random(n) < 0.5
+    a = rng.integers(2**23, 2**24, n).astype(np.int32)
+    b = rng.integers(120, 128, n).astype(np.int32)
+    words, payloads = _port_inputs(mask, [a, b], packed, cuda_device)
+    got = fs.fused_scan_sum(words, payloads, packed)
+    want = fs.fused_scan_sum_reference(words, payloads, packed)
+    assert int(got) == int(want) > 2**31
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols,packed", MODES)
+@pytest.mark.parametrize("n", [1, 31, 32 * 33 + 5, 1024 * 7 + 999, 1 << 20,
+                               (1 << 20) + 1024 * 5 + 17])
 def test_cuda_kernel_on_tile_edges(cuda_device, n, ncols, packed):
     """All-zero, all-ones and sparse 32-word tiles; word counts that are not
     a multiple of the tile, and rows that are not a multiple of 32."""

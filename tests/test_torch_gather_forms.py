@@ -9,7 +9,8 @@ and keeps each output.  So `kA`, `kA2`, `kB` and `kC` run with the script's
 own inputs (numpy `default_rng(0)`) and BlockSpecs.  The port's plain bodies
 must equal them exactly (int32, tolerance 0), with no index counted bad.
 The CUDA cases hold the hand-written kernels against the plain bodies on
-the card and skip where there is none.
+the card and skip where there is none; they need no jax, which a card's
+machine may not have.
 """
 
 import ast
@@ -17,15 +18,20 @@ import functools
 import os
 import time
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 from duckdb_cubit_tpu_torch.benchmarks import gather_probe
+from duckdb_cubit_tpu_torch.exec import profiler as PROF
 from duckdb_cubit_tpu_torch.ops import gather_forms as gf
+
+try:
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+except ImportError:     # no jax: only the cuda cases can run
+    jax = jnp = pl = None
 
 SCRIPT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks", "pallas_gather_probe.py")
@@ -134,10 +140,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
 
 def test_wrappers_on_cpu_run_plain_bodies_and_count_no_launch():
     idx, table, li2 = gather_probe.inputs(1 << 12, T, "cpu")
-    before = (gf.table_launch_count, gf.lane_launch_count)
+    before = _launches()
     gf.table_gather(table, idx)
     gf.lane_gather(table.reshape(-1, 128), li2)
-    assert (gf.table_launch_count, gf.lane_launch_count) == before
+    assert _launches() == before
+
+
+def _launches():
+    """-> (K5a launches, K5b launches) since import."""
+    return PROF.read("k5a_launches"), PROF.read("k5b_launches")
 
 
 @pytest.fixture
@@ -151,14 +162,13 @@ def cuda_device():
 @pytest.mark.parametrize("t", [T, 37, gf.MAX_TABLE])
 def test_cuda_kernels_match_plain_bodies(cuda_device, t):
     idx, table, li2 = gather_probe.inputs(N + 128 * 3, t, cuda_device)
-    before = (gf.table_launch_count, gf.lane_launch_count)
+    before = _launches()
     got_a = gf.table_gather(table, idx)
     tab2 = table[: t // 128 * 128].reshape(-1, 128) if t >= 128 else \
         table.repeat(128)[:128].reshape(1, 128)
     got_b = gf.lane_gather(tab2, li2)
     torch.cuda.synchronize()
-    assert (gf.table_launch_count, gf.lane_launch_count) == \
-        (before[0] + 1, before[1] + 1)
+    assert _launches() == (before[0] + 1, before[1] + 1)
     for got, want in ((got_a, gf.table_gather_reference(table, idx)),
                       (got_b, gf.lane_gather_reference(tab2, li2))):
         assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
@@ -274,3 +284,104 @@ def test_cuda_lane_gather_row_shapes(cuda_device, rows, r):
         want, want_bad = gf.lane_gather_reference(tab2, li)
         torch.cuda.synchronize()
         assert torch.equal(out, want) and int(bad) == int(want_bad) == 4
+
+
+def _twice_on_card(fn, tab, idx, bad):
+    """`fn` twice (the second call finds the scratch the first left)
+    against its plain body: equal outputs, and `bad` indices counted."""
+    plain = {gf.table_gather: gf.table_gather_reference,
+             gf.lane_gather: gf.lane_gather_reference}[fn]
+    want, want_bad = plain(tab, idx)
+    for _ in range(2):
+        out, got_bad = fn(tab, idx)
+        assert torch.equal(out, want)
+        assert int(got_bad) == int(want_bad) == bad
+
+
+def _table_gather_case(case, device):
+    """-> (table, indices, bad indices) of a K5a case, made on `device`."""
+    rng = np.random.default_rng(TABLE_CASES.index(case))
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    if case.startswith("T="):
+        t, n = {"T=8192": (8192, 1_000_003), "T=37": (37, 70_001),
+                "T=MAX_TABLE": (gf.MAX_TABLE, 1 << 22),
+                "T=1": (1, 4099)}[case.split(",")[0]]
+        idx = rng.integers(0, t, n).astype(np.int32)
+        idx[:2] = (0, t - 1)
+        idx[-2:] = (t - 1, 0)
+        return dev(rng.integers(-2**31, 2**31, t).astype(np.int32)), \
+            dev(idx), 0
+    tab2 = dev(rng.integers(-2**31, 2**31, (64, 128)).astype(np.int32))
+    if case == "(64, 128) table, (2**15, 128) indices":
+        return tab2, dev(rng.integers(0, 8192, (1 << 15, 128))
+                         .astype(np.int32)), 0
+    if case == "three indices out of range":
+        idx = rng.integers(0, 8192, 100_000).astype(np.int32)
+        idx[[5, 500, 99_999]] = (-1, 8192, -2**31)
+        return tab2, dev(idx), 3
+    if case == "MAX_TABLE entries from tab[1:], off a 16-B boundary":
+        big = dev(rng.integers(-2**31, 2**31, gf.MAX_TABLE + 1)
+                  .astype(np.int32))
+        return big[1:], dev(rng.integers(0, gf.MAX_TABLE, 333_333)
+                            .astype(np.int32)), 0
+    # a bad index at each position of a 16-B load, from idx[1:] too
+    idx = rng.integers(0, 8192, 1_000_003).astype(np.int32)
+    idx[[4000, 4101, 4202, 4303]] = (8192, -1, 9000, -2**31)
+    idx = dev(idx)
+    return tab2, idx[1:] if case.endswith("idx[1:]") else idx, 4
+
+
+TABLE_CASES = ["T=8192, 1-D", "T=37, 1-D", "T=MAX_TABLE, 1-D", "T=1, 1-D",
+               "(64, 128) table, (2**15, 128) indices",
+               "three indices out of range",
+               "MAX_TABLE entries from tab[1:], off a 16-B boundary",
+               "a bad index at each position of an int4",
+               "a bad index at each position of an int4, from idx[1:]"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_cuda_table_gather_cases(cuda_device, case):
+    _twice_on_card(gf.table_gather, *_table_gather_case(case, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,r", [(64, 1 << 15), (3, 1 << 12), (7, 8453),
+                                    (64, 4224 * 2 + 77), (100, 1001)])
+def test_cuda_lane_gather_more_row_shapes(cuda_device, rows, r):
+    """Rows that do and do not divide the grid's warp count, R a multiple
+    of none; 100 rows (51 KB) take the plain kernel."""
+    rng = np.random.default_rng(rows * 100_000 + r)
+    tab2 = torch.as_tensor(rng.integers(-2**31, 2**31, (rows, 128))
+                           .astype(np.int32), device=cuda_device)
+    li = torch.as_tensor(rng.integers(0, 128, (r, 128)).astype(np.int32),
+                         device=cuda_device)
+    _twice_on_card(gf.lane_gather, tab2, li, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["three out of range",
+                                  "one at each position of an int4",
+                                  "lane_idx and tab 4 B off a boundary"])
+def test_cuda_lane_gather_bad_lanes_and_views(cuda_device, case):
+    rng = np.random.default_rng(4)
+    if case.endswith("off a boundary"):
+        flat = torch.as_tensor(rng.integers(0, 128, 1001 * 128 + 1)
+                               .astype(np.int32), device=cuda_device)
+        tflat = torch.as_tensor(rng.integers(-2**31, 2**31, 3 * 128 + 1)
+                                .astype(np.int32), device=cuda_device)
+        _twice_on_card(gf.lane_gather, tflat[1:].view(3, 128),
+                       flat[1:].view(1001, 128), 0)
+        return
+    tab2 = torch.as_tensor(rng.integers(-2**31, 2**31, (64, 128))
+                           .astype(np.int32), device=cuda_device)
+    li = rng.integers(0, 128, (999, 128)).astype(np.int32)
+    li[[0, 10, 998], [0, 127, 64]] = (128, -1, 1000)
+    bad = 3
+    if case.startswith("one at each"):
+        li[500, 40:44] = (128, -1, 1 << 30, -2**31)
+        bad = 7
+    _twice_on_card(gf.lane_gather, tab2,
+                   torch.as_tensor(li, device=cuda_device), bad)

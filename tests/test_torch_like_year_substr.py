@@ -8,7 +8,10 @@ plain segment matcher (the body CPU tensors take) is also held to Python's
 `re.fullmatch` on seeded random bytes; its device copy of a dictionary
 must go with the dictionary, and a LIKE after an INSERT that merges a new
 string must see it, and after ROLLBACK must not.  year(date) must equal the
-reference's and Python's calendar, pre-1970 and leap days included.
+reference's and Python's calendar, pre-1970 and leap days included.  The
+CUDA cases hold K6, the matcher's kernel, to the plain matcher on the card
+and skip where there is none; they need no jax, which a card's machine may
+not have.
 """
 
 import datetime
@@ -16,19 +19,25 @@ import gc
 import re
 import weakref
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from duckdb_cubit_tpu import types as RT
-from duckdb_cubit_tpu.api import connect as ref_connect
-from duckdb_cubit_tpu.ops import expressions as RE
 from duckdb_cubit_tpu_torch import types as PT
 from duckdb_cubit_tpu_torch.api import Connection, connect
 from duckdb_cubit_tpu_torch.ops import dict_like as DL
 from duckdb_cubit_tpu_torch.ops import expressions as PE
+from duckdb_cubit_tpu_torch.exec import profiler as PROF
 from duckdb_cubit_tpu_torch.tpch.load import load_catalog
+
+try:
+    import jax.numpy as jnp
+
+    from duckdb_cubit_tpu import types as RT
+    from duckdb_cubit_tpu.api import connect as ref_connect
+    from duckdb_cubit_tpu.ops import expressions as RE
+except ImportError:     # no jax: only the cuda cases can run
+    jnp = RT = ref_connect = RE = None
 
 WORDS = [b"", b"a", b"abc", b"a.c", b"a+c", b"(x)", b"[ab]", b"a^b$",
          b"50%", b"x_y", b"back\\slash", b"green apple", b"forest green",
@@ -275,3 +284,61 @@ def conns():
 def test_sql_matches_reference(conns, sql):
     ref, port = conns
     assert port.sql(sql).strings() == ref.sql(sql).strings()
+
+
+# K6, the matcher's kernel, on the card.  Patterns: the CPU test's, then
+# `%%`, leading and trailing `_` and repeated segments; entries drawn from a
+# small alphabet, a quarter of them filling the width and a tenth empty.
+K6_PATTERNS = PATTERNS + ["%%", "_a%", "%b_", "_%_", "%ab%ab%", "a%b%c",
+                          "%a_b%", "abc", "ab%ba", "%_a_%", "c%", "%x%_%"]
+
+
+def _k6_entries(n, w, seed, device):
+    """(n, w) uint8 entries on `device`, NUL-padded as dictionary_bytes
+    pads them."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcx_%.\\", np.uint8)
+    raw = alphabet[rng.integers(0, len(alphabet), (n, w), np.uint8)]
+    length = rng.integers(0, w + 1, n)
+    length[rng.random(n) < 0.25] = w
+    length[rng.random(n) < 0.1] = 0
+    raw[np.arange(w)[None, :] >= length[:, None]] = 0
+    return torch.as_tensor(raw, device=device)
+
+
+def _k6_equal(entries, patterns):
+    """K6 against the plain matcher, pattern by pattern: one launch each,
+    every entry equal."""
+    for pattern in patterns:
+        before = PROF.read("k6_launches")
+        got = DL.like_table(entries, pattern)
+        want = DL.like_table_reference(entries, DL.compile_pattern(pattern))
+        assert torch.equal(got, want), pattern
+        assert PROF.read("k6_launches") == before + 1
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 127, 129, 5000])
+@pytest.mark.parametrize("w", [1, 7, 16, 55, 79, 101, 200, 300])
+def test_cuda_kernel_matches_plain_matcher(cuda_device, w, n, start):
+    """Widths with every tile 16-B aligned (16) and not, and wider than a
+    tile (200, 300: matched from device memory); `start` 1 takes the
+    entries from `entries[1:]`, whose tiles start off a 16-B boundary;
+    patterns longer than the width too."""
+    base = _k6_entries(5001, w, w, cuda_device)
+    _k6_equal(base[start:start + n],
+              K6_PATTERNS + ["a" * (w + 1), "%" + "a_" * w + "%"])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_at_q13s_shape(cuda_device):
+    """1.5M entries of 79 bytes: o_comment's dictionary at SF1."""
+    _k6_equal(_k6_entries(1_500_000, 79, 13, cuda_device), K6_PATTERNS)

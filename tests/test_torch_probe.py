@@ -6,18 +6,34 @@ body.  Every comparison is exact (int32 row ids and counts): where the
 reference reports no overflow, both outputs must be equal; on sparse keys,
 where the reference may overflow, the port must give `lut[keys]` with no
 overflow.  The CUDA cases hold the hand-written kernel against the plain
-body on the card and skip where there is none.
+body on the card and skip where there is none; they need no jax, which a
+card's machine may not have.
 """
 
-import jax.numpy as jnp
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from duckdb_cubit_tpu.index.pk import DirectPKIndex as RefPKIndex
-from duckdb_cubit_tpu.ops import pallas_probe as PP
+from duckdb_cubit_tpu_torch.exec import profiler as PROF
 from duckdb_cubit_tpu_torch.index.pk import DirectPKIndex
 from duckdb_cubit_tpu_torch.ops import probe
+
+try:
+    import jax.numpy as jnp
+
+    from duckdb_cubit_tpu.index.pk import DirectPKIndex as RefPKIndex
+    from duckdb_cubit_tpu.ops import pallas_probe as PP
+except ImportError:     # no jax: only the cuda cases can run
+    jnp = RefPKIndex = PP = None
+
+# keys per grid step of the Pallas kernel (`pallas_probe._BLOCK`)
+BLOCK = 1 << 17
+
+
+def test_block_is_the_pallas_kernels():
+    assert PP._BLOCK == BLOCK
 
 
 def _lut(dom, stride):
@@ -31,21 +47,21 @@ def _dense_case():
     rng = np.random.default_rng(0)
     keys, lut = _lut(600_000, 4)
     mult = rng.integers(1, 8, len(keys))
-    probe_keys = np.sort(np.repeat(keys, mult))[: PP._BLOCK + 777]
+    probe_keys = np.sort(np.repeat(keys, mult))[: BLOCK + 777]
     return lut, probe_keys.astype(np.int32)
 
 
 def _absent_case():
     _, lut = _lut(400_000, 4)
-    return lut, np.arange(PP._BLOCK, dtype=np.int32) + 1000
+    return lut, np.arange(BLOCK, dtype=np.int32) + 1000
 
 
 def _sparse_case():
     rng = np.random.default_rng(2)
     _, lut = _lut(4_000_000, 4)
-    probe_keys = np.unique(np.sort(rng.integers(0, 4_000_000, PP._BLOCK)))
+    probe_keys = np.unique(np.sort(rng.integers(0, 4_000_000, BLOCK)))
     probe_keys = np.sort(np.concatenate(
-        [probe_keys] * (PP._BLOCK // len(probe_keys) + 1)))[: PP._BLOCK]
+        [probe_keys] * (BLOCK // len(probe_keys) + 1)))[: BLOCK]
     return lut, probe_keys.astype(np.int32)
 
 
@@ -108,7 +124,7 @@ def test_precondition_breaks_are_counted(n):
 def test_gather_via_sort_matches_pallas():
     rng = np.random.default_rng(3)
     _, lut = _lut(500_000, 2)
-    keys = rng.integers(0, 500_000, PP._BLOCK).astype(np.int32)
+    keys = rng.integers(0, 500_000, BLOCK).astype(np.int32)
     ref_out, ref_ovf = PP.gather_via_sort(jnp.asarray(lut), jnp.asarray(keys),
                                           interpret=True)
     out, ovf = probe.gather_via_sort(torch.as_tensor(lut),
@@ -229,8 +245,8 @@ def test_gather_bytes_match_a_numpy_count():
 
 
 @pytest.mark.parametrize("n_keys,lut_size", [
-    (100, 1000), (PP._BLOCK // 4 - 1, 1000), (PP._BLOCK // 4, 1000),
-    (PP._BLOCK, 0), (PP._BLOCK, 1000), (6_001_215, 6_000_001)])
+    (100, 1000), (BLOCK // 4 - 1, 1000), (BLOCK // 4, 1000),
+    (BLOCK, 0), (BLOCK, 1000), (6_001_215, 6_000_001)])
 def test_plan_gates_as_the_reference(n_keys, lut_size):
     assert probe.plan_monotone_gather(n_keys, lut_size) == (
         PP.plan_monotone_gather(n_keys, lut_size) is not None)
@@ -238,9 +254,9 @@ def test_plan_gates_as_the_reference(n_keys, lut_size):
 
 def test_wrapper_on_cpu_runs_plain_body_and_counts_no_launch():
     lut, keys = _dense_case()
-    before = probe.launch_count
+    before = PROF.read("k2_launches")
     out, ovf = _port(lut, keys)
-    assert probe.launch_count == before
+    assert PROF.read("k2_launches") == before
     np.testing.assert_array_equal(out, lut[keys])
 
 
@@ -301,10 +317,10 @@ def test_cuda_kernel_matches_plain_body(cuda_device, case):
                      "sparse": _sparse_case}[case]()
     tl = torch.as_tensor(lut, device=cuda_device)
     tk = torch.as_tensor(keys, device=cuda_device)
-    before = probe.launch_count
+    before = PROF.read("k2_launches")
     out, ovf = probe.monotone_gather(tl, tk)
     torch.cuda.synchronize()
-    assert probe.launch_count == before + 1
+    assert PROF.read("k2_launches") == before + 1
     want, want_ovf = probe.monotone_gather_reference(tl, tk)
     assert torch.equal(out, want) and int(ovf) == int(want_ovf)
 
@@ -321,12 +337,109 @@ def test_cuda_many_lut_kernel_matches_plain_body(cuda_device, case, n_luts):
     tk = torch.as_tensor(keys, device=cuda_device)
     if case == "view":
         tk = tk[1:]
-    before = probe.launch_count
+    before = PROF.read("k2_launches")
     outs, ovf = probe.monotone_gather_many(luts, tk)
     torch.cuda.synchronize()
-    assert probe.launch_count == before + (n_luts + 7) // 8
+    assert PROF.read("k2_launches") == before + (n_luts + 7) // 8
     want, want_ovf = probe.monotone_gather_many_reference(luts, tk)
     assert torch.equal(outs, want) and int(ovf) == int(want_ovf)
+
+
+# The kernel at the main path's size: lineitem -> orders at SF1, a lut of
+# 6,000,001 slots a quarter full (random row ids), dense sorted keys.
+
+@functools.lru_cache(maxsize=None)
+def _sf1_lut():
+    """-> (row lut, 8 value luts, the dense keys: every present key 1-7
+    times), read-only."""
+    rng = np.random.default_rng(1)
+    present = np.arange(0, 6_000_001, 4)
+    lut = np.full(6_000_001, -1, np.int32)
+    lut[present] = rng.permutation(len(present)).astype(np.int32)
+    dense = np.repeat(present, rng.integers(1, 8, len(present)))
+    return lut, _value_luts(lut, 8, seed=5), dense.astype(np.int32)
+
+
+def _sf1_keys(kind):
+    """The keys of one kind over `_sf1_lut`'s lut, int32."""
+    dense = _sf1_lut()[2]
+    rng = np.random.default_rng(2)
+    if kind == "dense":
+        return dense
+    if kind == "absent":
+        # every slot of a quarter-full lut: three keys in four hit -1
+        return np.arange(1000, 4_001_000, dtype=np.int32)
+    if kind == "sparse":
+        return np.repeat(np.arange(0, 6_000_001, 97, dtype=np.int32), 2)
+    if kind == "ragged":
+        # no block size divides the length
+        return np.sort(rng.integers(0, 6_000_001, 1_000_003)).astype(np.int32)
+    if kind == "unordered":
+        keys = np.sort(rng.integers(0, 6_000_001, 3_000_000)).astype(np.int32)
+        keys[1_000_000] = keys[999_999] - 1
+        keys[2_000_000] = 6_000_001
+        return keys
+    # "broken": a key below its predecessor where a warp's span starts
+    # (lane 0 reads the predecessor from memory), at a quad boundary (it
+    # comes by shuffle) and inside a quad
+    keys = dense[:1_000_000].copy()
+    for i in (128 * 1000, 4 * 30001, 4 * 60001 + 2):
+        keys[i] = keys[i - 1] - 1
+    return keys
+
+
+# name -> (luts, kind of keys, the slice of the keys' device tensor probed):
+# views start 4, 8 and 12 B past a 16-B boundary, lengths fill no quad, no
+# warp's span and no block; keys[1:] of the broken keys moves every boundary
+SF1_CASES = {
+    "dense keys, multiplicity 1-7": (1, "dense", slice(None)),
+    "absent slots": (1, "absent", slice(None)),
+    "sparse keys (stride 97)": (1, "sparse", slice(None)),
+    "out-of-order and out-of-range keys": (1, "unordered", slice(None)),
+    "ragged length 1,000,003": (1, "ragged", slice(None)),
+    **{f"dense keys, {m} luts": (m, "dense", slice(None))
+       for m in (1, 2, 4, 8, 9)},
+    **{f"keys[{off}:], 3 luts": (3, "dense", slice(off, None))
+       for off in (1, 2, 3)},
+    **{f"n={n}, 2 luts": (2, "dense", slice(0, n))
+       for n in (1, 3, 5, 127, 129, 1_000_003)},
+    **{f"n={n} from keys[1:], 2 luts": (2, "dense", slice(1, n + 1))
+       for n in (1, 3, 5, 127, 129, 1_000_003)},
+    "broken at a span, a quad and inside a quad": (4, "broken", slice(None)),
+    "the same broken keys from keys[1:]": (4, "broken", slice(1, None)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SF1_CASES))
+def test_cuda_kernel_at_the_main_paths_size(cuda_device, case):
+    """Every output row and the overflow equal the plain body's, and the
+    overflow counts the keys that break the precondition."""
+    n_luts, kind, view = SF1_CASES[case]
+    lut, values, _ = _sf1_lut()
+    luts, keys = [lut, *values][:n_luts], _sf1_keys(kind)
+    k = keys[view].astype(np.int64)
+    bad = (k < 0) | (k >= len(luts[0]))
+    bad[1:] |= k[1:] < k[:-1]
+    tl = [torch.as_tensor(t, device=cuda_device) for t in luts]
+    tk = torch.as_tensor(keys, device=cuda_device)[view]
+    outs, ovf = probe.monotone_gather_many(tl, tk)
+    want, want_ovf = probe.monotone_gather_many_reference(tl, tk)
+    assert torch.equal(outs, want)
+    assert int(ovf) == int(want_ovf) == int(bad.sum())
+    if kind == "broken":
+        assert int(ovf) == 3
+
+
+@pytest.mark.cuda
+def test_cuda_gather_via_sort_matches_the_cpu(cuda_device):
+    """Random keys through the sort, the kernel and the scatter back."""
+    lut = torch.as_tensor(_sf1_lut()[0], device=cuda_device)
+    keys = torch.as_tensor(np.random.default_rng(2).integers(
+        0, len(lut), 2_000_000).astype(np.int32), device=cuda_device)
+    got, ovf = probe.gather_via_sort(lut, keys)
+    want, want_ovf = probe.gather_via_sort(lut.cpu(), keys.cpu())
+    assert torch.equal(got.cpu(), want) and int(ovf) == int(want_ovf) == 0
 
 
 # ----------------------------------------------------------------------

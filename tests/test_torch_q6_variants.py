@@ -12,7 +12,8 @@ kernels' Hopper design (ragged lengths, zero 4-row groups, every mask byte
 at every position of a 16-B load, views) hold the plain bodies against a
 numpy oracle instead, and the wrappers' refusal of views off a 16-B
 boundary is checked here.  The CUDA cases hold the hand-written kernels
-against the plain bodies on the card and skip where there is none.
+against the plain bodies on the card and skip where there is none; they
+need no jax, which a card's machine may not have.
 """
 
 import ast
@@ -20,18 +21,24 @@ import functools
 import os
 import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-import duckdb_cubit_tpu  # noqa: F401  (the reference's jax settings)
 from duckdb_cubit_tpu_torch.benchmarks import q6bench
+from duckdb_cubit_tpu_torch.exec import profiler as PROF
 from duckdb_cubit_tpu_torch.ops import bitmap as bm
 from duckdb_cubit_tpu_torch.ops import q6_variants as qv
+
+try:
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    import duckdb_cubit_tpu  # noqa: F401  (the reference's jax settings)
+except ImportError:     # no jax: only the cuda cases can run
+    jax = jnp = pl = pltpu = None
 
 SCRIPT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks", "q6bench.py")
@@ -94,9 +101,14 @@ def _mask_of(words_u32):
         .astype(np.int8).reshape(-1)
 
 
-def _t(a):
+def _t(a, device="cpu"):
     """A copy in torch's own memory, which starts on a 16-B boundary."""
-    return torch.tensor(np.ascontiguousarray(a))
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def _launches():
+    """-> (K3 launches, K4 launches) since import."""
+    return PROF.read("k3_launches"), PROF.read("k4_launches")
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -155,11 +167,11 @@ def test_plain_bodies_equal_the_scripts_fused_mask_i32(case):
 
 def test_wrappers_on_cpu_run_plain_bodies_and_count_no_launch():
     words, a, b = _case("random words, Q6 payloads")
-    before = (qv.words_launch_count, qv.mask8_launch_count)
+    before = _launches()
     tw = _t(words.view(np.int32))
     qv.q6_words_i32(tw, _t(a), _t(b))
     qv.q6_mask8_i32(bm.expand(tw, N).to(torch.int8), _t(a), _t(b))
-    assert (qv.words_launch_count, qv.mask8_launch_count) == before
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("bad", ["words-dtype", "payload-dtype", "length",
@@ -240,14 +252,15 @@ def test_plain_bodies_equal_numpy_on_the_kernels_new_paths(case):
     np.testing.assert_array_equal(got4.numpy(), _oracle(mask, a, b))
 
 
-def _views(case):
-    """(label, K3 or K4, selector view, a view, b view) over one stack."""
+def _views(case, device="cpu"):
+    """(K3 or K4, selector view, a view, b view) over one stack made on
+    `device`."""
     words, _, a, b = _new_case("n=32*1001, zero 4-row groups")
     n = len(a)
-    tw = _t(np.stack([words, words[::-1]]).view(np.int32))
+    tw = _t(np.stack([words, words[::-1]]).view(np.int32), device)
     tm = _t(np.random.default_rng(9).integers(-128, 128, (2, n))
-            .astype(np.int8))
-    ta, tb = _t(a), _t(b)
+            .astype(np.int8), device)
+    ta, tb = _t(a, device), _t(b, device)
     # a word holds 128 B of each payload: words[k:] keeps a[32 k:] aligned
     return {"words[1:], a[32:], b[32:]": ("K3", tw[0, 1:], ta[32:], tb[32:]),
             "words[3:], a[96:], b[96:]": ("K3", tw[0, 3:], ta[96:], tb[96:]),
@@ -305,11 +318,10 @@ def test_cuda_kernels_match_plain_bodies(cuda_device, case):
     tw = _t(words.view(np.int32)).to(cuda_device)
     ta, tb = _t(a).to(cuda_device), _t(b).to(cuda_device)
     tm = bm.expand(tw, N).to(torch.int8)
-    before = (qv.words_launch_count, qv.mask8_launch_count)
+    before = _launches()
     got3, got4 = qv.q6_words_i32(tw, ta, tb), qv.q6_mask8_i32(tm, ta, tb)
     torch.cuda.synchronize()
-    assert (qv.words_launch_count, qv.mask8_launch_count) == \
-        (before[0] + 1, before[1] + 1)
+    assert _launches() == (before[0] + 1, before[1] + 1)
     assert torch.equal(got3, qv.q6_words_i32_reference(tw, ta, tb))
     assert torch.equal(got4, qv.q6_mask8_i32_reference(tm, ta, tb))
 
@@ -318,21 +330,88 @@ def test_cuda_kernels_match_plain_bodies(cuda_device, case):
 @pytest.mark.parametrize("case", NEW_CASES)
 def test_cuda_kernels_match_plain_bodies_on_new_paths(cuda_device, case):
     words, mask, a, b = _new_case(case)
-    tw = _t(words.view(np.int32)).to(cuda_device)
-    tm = _t(mask).to(cuda_device)
-    ta, tb = _t(a).to(cuda_device), _t(b).to(cuda_device)
-    # twice: each launch must leave the kernels' scratch zero
+    _on_card(words, mask, a, b, cuda_device)
+
+
+def _on_card(words, mask, a, b, device):
+    """K3 on the words, K4 on the signed mask and on the words' 0/1 mask,
+    each twice (each launch must leave the kernels' scratch zero), against
+    the plain bodies."""
+    tw = _t(words.view(np.int32), device)
+    ta, tb = _t(a, device), _t(b, device)
+    masks = [_t(mask, device), bm.expand(tw, len(a)).to(torch.int8)]
     for _ in range(2):
-        got3, got4 = qv.q6_words_i32(tw, ta, tb), qv.q6_mask8_i32(tm, ta, tb)
-        assert torch.equal(got3, qv.q6_words_i32_reference(tw, ta, tb))
-        assert torch.equal(got4, qv.q6_mask8_i32_reference(tm, ta, tb))
+        assert torch.equal(qv.q6_words_i32(tw, ta, tb),
+                           qv.q6_words_i32_reference(tw, ta, tb))
+        for tm in masks:
+            assert torch.equal(qv.q6_mask8_i32(tm, ta, tb),
+                               qv.q6_mask8_i32_reference(tm, ta, tb))
+
+
+# the same paths at the main path's lengths: 2**20 rows, and 32 * 100,003
+# (K3's steps and tiles and K4's scalar tail ragged at that length)
+LONG_CASES = ["random words, 2**20 rows", "all-zero words and mask, 2**20 rows",
+              "every byte at every position of a 16-B load, 2**20 rows",
+              "n=32*100003, zero 4-row groups", "random bytes, 2**20 rows",
+              "all-ones words, Q6 payloads, 2**20 rows",
+              "all-ones words, low half wraps, 2**20 rows",
+              "random words, Q6 payloads, n=32*733*3"]
+
+
+def _long_case(name):
+    """-> (uint32 words, int8 mask, int32 a, int32 b), made from a seed."""
+    rng = np.random.default_rng(200 + LONG_CASES.index(name))
+    n = 32 * 100_003 if name.startswith("n=") else \
+        32 * 733 * 3 if name.endswith("733*3") else 1 << 20
+    words = rng.integers(0, 2**32, n // 32, dtype=np.uint32)
+    a = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    b = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    mask = rng.integers(-128, 128, n).astype(np.int8)
+    if name.startswith("n="):
+        words = _zero_group_words(rng, n // 32)
+        vals = rng.integers(-128, 128, n)
+        vals[vals == 0] = 1
+        mask = np.where(_mask_of(words) != 0, vals, 0).astype(np.int8)
+    elif name.startswith("all-zero"):
+        words, mask = np.zeros_like(words), np.zeros_like(mask)
+    elif name.startswith("every byte"):
+        s, j = np.arange(n // 16)[:, None], np.arange(16)[None, :]
+        mask = ((s + 37 * j) % 256).astype(np.uint8).view(np.int8) \
+            .reshape(-1)
+    elif name.startswith("all-ones"):
+        words = np.full(n // 32, 2**32 - 1, np.uint32)
+    if "Q6 payloads" in name:
+        a = rng.integers(0, 10_500_000, n).astype(np.int32)
+        b = rng.integers(0, 11, n).astype(np.int32)
+    elif "low half wraps" in name:
+        # prod & 0xFFFF near 65535 on every row: the low half wraps 2**32
+        a = rng.integers(60_000, 65_536, n).astype(np.int32)
+        b = np.ones(n, np.int32)
+    return words, mask, a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LONG_CASES)
+def test_cuda_kernels_match_plain_bodies_at_full_length(cuda_device, case):
+    _on_card(*_long_case(case), cuda_device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", TAKEN)
 def test_cuda_kernels_take_views_on_a_16B_boundary(cuda_device, view):
-    kind, sel, a, b = (t.to(cuda_device) if isinstance(t, torch.Tensor)
-                       else t for t in _views(view))
+    """Views of a stack made on the card, as the wrappers get them."""
+    kind, sel, a, b = _views(view, cuda_device)
     fn, plain = ((qv.q6_words_i32, qv.q6_words_i32_reference) if kind == "K3"
                  else (qv.q6_mask8_i32, qv.q6_mask8_i32_reference))
     assert torch.equal(fn(sel, a, b), plain(sel, a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", REFUSED)
+def test_cuda_wrappers_refuse_views_off_a_16B_boundary(cuda_device, view):
+    kind, sel, a, b = _views(view, cuda_device)
+    fn = qv.q6_words_i32 if kind == "K3" else qv.q6_mask8_i32
+    before = _launches()
+    with pytest.raises(ValueError, match="16-B boundary"):
+        fn(sel, a, b)
+    assert _launches() == before
