@@ -11,11 +11,11 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  Phases, each of which
 raises on failure (non-zero exit):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
-  2. build: all eight kernels from duckdb_cubit_tpu_torch/csrc/, one nvcc
+  2. build: all nine kernels from duckdb_cubit_tpu_torch/csrc/, one nvcc
      each, started together: K1 the fused scan-sum, K2 the monotone gather,
      K3 / K4 the Q6 word- and mask-sums with int32 halves, K5a the table
-     gather, K5b the lane gather, K6 the dictionary LIKE matcher and K7 the
-     stream compaction;
+     gather, K5b the lane gather, K6 the dictionary LIKE matcher, K7 the
+     stream compaction and K8 the key-to-row probe for unsorted keys;
   3. kernel parity: `pytest -m cuda` on the kernel test files
      (`KERNEL_TESTS`), whose `cuda` cases hold each kernel to its plain
      torch body on the card, bit for bit (ragged lengths, views off a 16-B
@@ -84,7 +84,9 @@ raises on failure (non-zero exit):
      replaced; K6 at q13's o_comment and q09's p_name inputs, and the host
      regex walk it replaced at q13's; K7 at `K7_SHAPES` beside the plain
      sort and torch.nonzero (the library yardstick, which the port never
-     calls);
+     calls); K8 at `K8_SHAPES` (SSB SF20's star-join passes) beside its
+     plain body, the route it replaced (`DirectPKIndex.probe` and the row
+     gathers) and a bare `lut[keys]`;
  10. entry points, each with the launches counted from just before it
      to just after, on the catalog already loaded:
      `benchmarks.q6bench` (64 random word variants over lineitem; K3 and
@@ -265,6 +267,9 @@ REPLACES = {
                  "matches a regex per dictionary entry on the host",
     "stream_compact": "none: the sort in duckdb_cubit_tpu/ops/kernels.py:233 "
                       "(mask_to_indices)",
+    "pk_probe": "none: duckdb_cubit_tpu/index/pk.py:61 (probe) and the row "
+                "gathers of duckdb_cubit_tpu/plan/physical.py:806 "
+                "(_gather_single), plain array operations",
 }
 # K7 at the main path's shapes: (label, rows, density, capacity); the first
 # is the one the kernel table reports
@@ -272,6 +277,15 @@ K7_SHAPES = [("SSB SF20 lineorder at Q1.1's density", 120_000_000, 0.019,
               4_194_304),
              ("SSB SF20 lineorder at 0.1%", 120_000_000, 0.001, 131_072),
              ("TPC-H SF1 lineitem at 2%", 6_001_215, 0.02, 131_072)]
+# K8 at SSB SF20's star-join passes: (label, probe rows, table slots, table
+# rows, value luts, live share of the table's rows); the first is the one
+# the kernel table reports
+K8_SHAPES = [("SSB SF20 pass into part, 1 value lut", 60_000_000, 1_000_000,
+              1_000_000, 1, 0.04),
+             ("SSB SF20 pass into ddate, 1 value lut", 60_000_000, 61_130,
+              2_556, 1, 1 / 7),
+             ("SSB SF20 pass into customer, 2 value luts", 60_000_000,
+              600_000, 600_000, 2, 0.2)]
 # the SQL texts that evaluate LIKE, so K6 launches there and nowhere else
 K6_TEXTS = {2, 9, 13, 14, 16, 20}
 # the kernel test files whose `cuda` cases hold each kernel to its plain
@@ -280,7 +294,8 @@ KERNEL_TESTS = ["tests/test_torch_fused_scan.py", "tests/test_torch_probe.py",
                 "tests/test_torch_q6_variants.py",
                 "tests/test_torch_gather_forms.py",
                 "tests/test_torch_like_year_substr.py",
-                "tests/test_torch_compact.py"]
+                "tests/test_torch_compact.py",
+                "tests/test_torch_pk_probe.py"]
 # the real dictionaries K6 is held to on the loaded catalog, with the
 # patterns TPC-H's queries give them
 K6_COLUMNS = [("orders", "o_comment", ["%special%requests%",
@@ -554,7 +569,7 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
     cpu = connect(sf=sf, device="cpu")
     print(f"CPU catalog at SF{sf:g} loaded in {time.perf_counter() - t0:.2f} s")
     totals = {"fused_scan_sum": 0, "monotone_gather": 0, "dict_like": 0,
-              "stream_compact": 0}
+              "stream_compact": 0, "pk_probe": 0}
     out, card_rows = [], {}
     for n in sorted(queries.QUERIES):
         def run_card(n=n):
@@ -584,6 +599,7 @@ def tpch_plans(conn, sf: float, card: str) -> dict:
         totals["monotone_gather"] += k2
         totals["dict_like"] += counts["dict_like"]
         totals["stream_compact"] += k7
+        totals["pk_probe"] += counts["pk_probe"]
         times = []
         for _ in range(RUNS_PLANS + 2):
             t1 = time.perf_counter()
@@ -635,7 +651,7 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
     must = {6: {"fused_scan_sum": 1}, 3: {"monotone_gather": 1},
             12: {"monotone_gather": 1}}
     totals = {"fused_scan_sum": 0, "monotone_gather": 0, "dict_like": 0,
-              "stream_compact": 0}
+              "stream_compact": 0, "pk_probe": 0}
     out, text_rows = [], {}
     for n in sorted(SQL):
         def run(n=n):
@@ -666,6 +682,7 @@ def tpch_sql(conn, plans: dict, card: str) -> dict:
         totals["monotone_gather"] += k2
         totals["dict_like"] += k6
         totals["stream_compact"] += k7
+        totals["pk_probe"] += counts["pk_probe"]
         times = []
         # no truth table is kept: every run launches K6 again
         before = PROF.read("k6_launches")
@@ -1653,6 +1670,74 @@ def k7_timing(device, flush, card) -> dict:
     return out
 
 
+def k8_inputs(n: int, slots: int, rows: int, n_vals: int, live: float,
+              seed: int, device):
+    """A key-to-row table of `rows` keys over `slots` slots from key 1
+    (every slot filled when they are equal, else `rows` sorted keys spread
+    over them, as the date table's), a `live` share of its rows live,
+    `n_vals` value columns, and n probe keys drawn from the table's keys,
+    every probe row masked in (a pass's first join).  -> (index, build
+    mask, value luts, keys, mask), on the card."""
+    from duckdb_cubit_tpu_torch.index.pk import DirectPKIndex
+
+    rng = np.random.default_rng(seed)
+    keys = 1 + (np.arange(slots) if rows == slots else np.sort(
+        rng.choice(slots, rows, replace=False)))
+    keys[-1] = slots
+    idx = DirectPKIndex.build("k", keys, rows, device=device)
+    bmask = torch.as_tensor(rng.random(rows) < live, device=device)
+    vluts = [idx.device_value_lut(f"v{j}", rng.integers(
+        0, 2**31 - 1, rows, dtype=np.int32)) for j in range(n_vals)]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    table_keys = torch.as_tensor(keys.astype(np.int32), device=device)
+    probe = table_keys[torch.randint(0, rows, (n,), generator=gen,
+                                     device=device)]
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    return idx, bmask, vluts, probe, mask
+
+
+def k8_timing(device, flush, card) -> dict:
+    """K8 at each of `K8_SHAPES` beside its plain body, the `gather` route
+    it replaced on SSB's joins (`DirectPKIndex.probe`, then a clamp and
+    one row gather a build column), L2 flushed, with its bound
+    (`pk_probe.probe_bytes` at 3.35 TB/s) and a bare `lut[keys]` over the
+    slots, the library call.  -> {label: (K8 ms, plain ms, bound ms,
+    lut[keys] ms, gather-route ms)}."""
+    from duckdb_cubit_tpu_torch.ops import pk_probe as K8
+
+    out = {}
+    for i, (label, n, slots, rows, n_vals, live) in enumerate(K8_SHAPES):
+        idx, bmask, vluts, keys, mask = k8_inputs(n, slots, rows, n_vals,
+                                                  live, 300 + i, device)
+        lut = K8.live_lut(idx.lut, bmask)
+        cols = [torch.randint(0, 2**31 - 1, (rows,), device=device,
+                              dtype=torch.int32) for _ in range(n_vals)]
+
+        def gather_route():
+            row, found = idx.probe(keys, mask, bmask)
+            safe = torch.clamp(row, 0, rows - 1)
+            return found, [c[safe] for c in cols]
+
+        print(f"K8 at {label} (n={n}, {slots} slots, {rows} rows, "
+              f"{live:.3f} live):")
+        ms, plain_ms = turns(
+            lambda: K8.pk_probe(lut, idx.base, keys, mask, vluts),
+            lambda: K8.pk_probe_reference(lut, idx.base, keys, mask, vluts),
+            flush, card)
+        nbytes = K8.probe_bytes(keys, mask, [4] * n_vals)
+        bound = bound_ms(nbytes)
+        slots_of = (keys - idx.base).contiguous()
+        lib_ms = time_cold(lambda: lut[slots_of], 30, flush)
+        route_ms = time_cold(gather_route, 30, flush)
+        print(f"K8 {ms:.4f} ms vs plain body {plain_ms:.4f} ms, the gather "
+              f"route {route_ms:.4f} ms and lut[keys] {lib_ms:.4f} ms at "
+              f"{label} (L2 flushed); bound {bound:.4f} ms ({nbytes} B), "
+              f"{bound / ms:.3f} of it  [{card}]")
+        out[label] = ms, plain_ms, bound, lib_ms, route_ms
+        del idx, bmask, vluts, keys, mask, lut, cols, slots_of
+    return out
+
+
 def k7_on_root(conn, sql: str, want: int, label: str):
     """One run of `sql` under torch.profiler: its `db.sql` root's
     `k7_launches` must equal the wrapper's count, `want`."""
@@ -1687,26 +1772,29 @@ def counted(run, *must_launch):
 
 
 def pk_probe_profile(conn, sql: str) -> tuple[float, float]:
-    """Device ms per call of the first kernel-path `HashJoin._pk_probe` of a
-    query, from torch.profiler, split into (K2's own kernel, the rest: the
-    key widening and clamp, the liveness scatter and the lut-sized where)."""
+    """Device ms per call of the first `HashJoin._pk_probe` of a query that
+    launches K2, from torch.profiler, split into (K2's own kernel, the rest:
+    the key widening and clamp, the liveness scatter and the lut-sized
+    where)."""
     from duckdb_cubit_tpu_torch.plan.physical import HashJoin
 
     seen = []
     real = HashJoin._pk_probe
 
-    def recording(self, *args):
-        result = real(self, *args)
-        if result[2] is not None and not seen:
-            seen.append((self, *args))
+    def recording(self, *args, **kwargs):
+        before = PROF.read("k2_launches")
+        result = real(self, *args, **kwargs)
+        if PROF.read("k2_launches") > before and not seen:
+            seen.append((self, args, kwargs))
         return result
     HashJoin._pk_probe = recording
     try:
         conn.sql(sql).strings()
     finally:
         HashJoin._pk_probe = real
-    join, *args = seen[0]
-    kernels, _ = device_kernel_times(lambda: real(join, *args), RUNS)
+    join, args, kwargs = seen[0]
+    kernels, _ = device_kernel_times(lambda: real(join, *args, **kwargs),
+                                     RUNS)
     k2 = sum(ms for name, ms in kernels.items() if "monotone_gather" in name)
     return k2, sum(kernels.values()) - k2
 
@@ -2479,6 +2567,7 @@ def main() -> int:
     rows, counts = counted(lambda: conn.sql(Q6).strings(), "fused_scan_sum")
     launches["fused_scan_sum"] = counts["fused_scan_sum"]
     launches["stream_compact"] = counts["stream_compact"]
+    launches["pk_probe"] = counts["pk_probe"]
     if counts["dict_like"]:
         raise AssertionError("K6 launched in Q6, which has no LIKE")
     expect = oracle_of(cat, "Q6")[0][0]
@@ -2525,6 +2614,7 @@ def main() -> int:
                                  f" times")
         launches["monotone_gather"] += k2_launches
         launches["stream_compact"] += counts["stream_compact"]
+        launches["pk_probe"] += counts["pk_probe"]
     print(f"Q1, Q12, Q3 equal their numpy oracles; K2 launches "
           f"{launches['monotone_gather']}")
 
@@ -2663,6 +2753,10 @@ def main() -> int:
     k7_ms, k7_plain_ms, bounds["stream_compact"], library["stream_compact"] = \
         k7[K7_SHAPES[0][0]]
     times["stream_compact"] = k7_ms, k7_plain_ms
+    k8 = k8_timing(device, flush, card)
+    k8_ms, k8_plain_ms, bounds["pk_probe"], library["pk_probe"], _ = \
+        k8[K8_SHAPES[0][0]]
+    times["pk_probe"] = k8_ms, k8_plain_ms
     del flush
 
     phase("entry point: benchmarks.q6bench")
@@ -2719,7 +2813,7 @@ def main() -> int:
                       "dml": dml["launches"][name],
                       "mesh_dml": meshed["launches"][name]}
                for name in ("fused_scan_sum", "monotone_gather")}
-    for name in ("dict_like", "stream_compact"):
+    for name in ("dict_like", "stream_compact", "pk_probe"):
         by_path[name] = {"sql": launches[name],
                          "tpch_plans": plans["launches"][name],
                          "tpch_sql": texts["launches"][name]}
@@ -2740,6 +2834,11 @@ def main() -> int:
     k7_row["shapes"] = {label: {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
                                 "library_ms": lib}
                         for label, (ms, plain, bnd, lib) in k7.items()}
+    k8_row = next(r for r in table if r["name"] == "pk_probe")
+    k8_row["shapes"] = {label: {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                                "library_ms": lib, "gather_route_ms": route}
+                        for label, (ms, plain, bnd, lib, route)
+                        in k8.items()}
     for row in table:
         if row["name"] in by_path:
             row["launches_by_path"] = by_path[row["name"]]

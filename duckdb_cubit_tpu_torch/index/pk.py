@@ -28,8 +28,8 @@ class DirectPKIndex:
         self.max_key = max_key
         self.base = base        # the key of slot 0
         # per-column VALUE luts in slot space: vlut[slot] = column[lut[slot]]
-        # (0 where absent; callers mask by `found`).  Built once on the host
-        # and cached here, so an entry holds the column's values as they
+        # (0 where absent; callers mask by `found`).  Built once and cached
+        # here, so an entry holds the column's values as they
         # were when it was built: every mutation of the table replaces the
         # index (an append rebuilds it, an UPDATE of a column swaps in
         # `without_value_lut`), and an index object is never changed after
@@ -65,17 +65,25 @@ class DirectPKIndex:
         out._lut_host = self._lut_host
         return out
 
-    def device_value_lut(self, name: str, host_col: np.ndarray) -> torch.Tensor:
-        """int32 value lut of a base column, on the index's device."""
+    def device_value_lut(self, name: str,
+                         column: np.ndarray | torch.Tensor) -> torch.Tensor:
+        """int32 value lut of a base column, on the index's device: built
+        there from the whole column on that device (a gather over the
+        slots), or on the host from its host mirror (a table on a mesh,
+        whose device holds a row block)."""
         v = self._value_luts.get(name)
         if v is None:
-            if self._lut_host is None:
-                self._lut_host = self.lut.cpu().numpy()
-            lh = self._lut_host
-            vals = np.asarray(host_col)[np.maximum(lh, 0)].astype(np.int32)
-            vals[lh < 0] = 0
-            v = self._value_luts[name] = torch.as_tensor(
-                vals, device=self.lut.device)
+            if isinstance(column, torch.Tensor):
+                v = torch.where(self.lut >= 0, column[self.lut.clamp(min=0)]
+                                .to(torch.int32), 0)
+            else:
+                if self._lut_host is None:
+                    self._lut_host = self.lut.cpu().numpy()
+                lh = self._lut_host
+                vals = np.asarray(column)[np.maximum(lh, 0)].astype(np.int32)
+                vals[lh < 0] = 0
+                v = torch.as_tensor(vals, device=self.lut.device)
+            self._value_luts[name] = v
         return v
 
     @classmethod

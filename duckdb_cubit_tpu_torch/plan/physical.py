@@ -42,6 +42,7 @@ from ..ops import fused_scan as fs
 from ..ops import groupby as groupby_ops
 from ..ops import join as join_ops
 from ..ops import kernels
+from ..ops import pk_probe as K8
 from ..ops import probe as PPK
 from ..ops.expressions import (Arith, Col, ColMeta, EvalContext, Expr,
                                Typed, _as_double, _rescale, _wide, as_mask)
@@ -50,8 +51,9 @@ from ..parallel import shard as SH
 from ..storage.table import Table, pad_count
 from ..types import BOOL, DOUBLE, INT64, DataType, TypeId
 
-# probe rows that took a key-to-row table (`HashJoin._pk_probe`)
-PROF.declare("pk_probe_rows")
+# probe rows that took a key-to-row table (`HashJoin._pk_probe`), and of
+# them those that took K8 (route `k8`)
+PROF.declare("pk_probe_rows", "pk_probe_k8_rows")
 
 
 @dataclasses.dataclass
@@ -597,6 +599,19 @@ def _exact_key_eq(probe_rel, build_rel, probe_keys, build_keys, probe_rows,
     return base
 
 
+# key types K8 probes with (widened to int32)
+_NARROW_INTS = (torch.int8, torch.uint8, torch.int16, torch.int32)
+
+
+def _value_luts(table, pkidx, names) -> list[torch.Tensor]:
+    """The value luts of build columns `names` on a key-to-row table, built
+    once and cached on the index: on the device from the stored column, or
+    from the host mirror where the device holds a row block (a mesh)."""
+    return [pkidx.device_value_lut(n, table.columns[n].host if table.sharded
+                                   else table.columns[n].data)
+            for n in names]
+
+
 def _scatter_flags(size: int, at: torch.Tensor, ok: torch.Tensor):
     """A (size,) bool tensor, True at at[i] wherever ok[i]."""
     tgt = torch.where(ok, at.to(torch.int64), torch.full_like(
@@ -712,20 +727,25 @@ class HashJoin(PhysicalOperator):
         """-> (build row or -1, found, the probe keys (at a matched row, the
         build key) or None when the plain lut path ran, {column: its build
         values fetched through its value lut by the same kernel pass}).
-        `value_cols` are the columns to fetch on the kernel path."""
+        `value_cols` are the columns to fetch on a kernel route."""
         table_name, col = self._pk
         table = ctx.catalog.table(table_name)
         pkidx = table.pk_indexes[col]
         kcol = probe_rel.columns[self.probe_keys[0]]
-        route = "k2" if self._kernel_probe_eligible(
-            ctx, kcol, probe_rel, pkidx.span, build_rel) else "gather"
+        route = self._probe_route(ctx, kcol, probe_rel, pkidx.span,
+                                  build_rel)
         PROF.count("pk_probe_rows", probe_rel.capacity)
+        if route == "k8":
+            PROF.count("pk_probe_k8_rows", probe_rel.capacity)
         with PROF.span("db.join.pk_probe") as sp:
             sp.set(rows=probe_rel.capacity, slots=pkidx.span, route=route)
             if route == "gather":
                 row, found = pkidx.probe(kcol.array, probe_rel.mask,
                                          build_rel.mask)
                 return row, found, None, {}
+            if route == "k8":
+                return self._k8_probe(table, pkidx, kcol, probe_rel,
+                                      build_rel, value_cols)
             return self._k2_probe(ctx, table, pkidx, kcol, probe_rel,
                                   build_rel, value_cols)
 
@@ -747,12 +767,7 @@ class HashJoin(PhysicalOperator):
         alive_slots[tgt] = True
         lut_eff = torch.where(alive_slots[:span], pkidx.lut,
                               torch.full_like(pkidx.lut, -1))
-        # value luts are built once on the host and cached on the index
-        vluts = []
-        for n in value_cols:
-            bc = table.columns[n]
-            vluts.append(pkidx.device_value_lut(
-                n, bc.host if bc.host is not None else bc.data.cpu().numpy()))
+        vluts = _value_luts(table, pkidx, value_cols)
         kc = kc.to(torch.int32)
         outs, ovf = PPK.monotone_gather_many([lut_eff, *vluts], kc)
         ctx.add_check(self, "pkprobe", ovf == 0)
@@ -761,29 +776,55 @@ class HashJoin(PhysicalOperator):
         return (torch.where(found, row, torch.full_like(row, -1)), found,
                 kcol.array, dict(zip(value_cols, outs[1:])))
 
-    def _value_fetches(self, probe_rel, build_rel) -> list[str]:
-        """Build columns the single-match gather takes from value luts: each
-        eligible column the join reads and outputs, without NULLs."""
-        return [n for n in self._vlut_cols
-                if n in build_rel.columns
-                and build_rel.columns[n].valid is None
-                and self.build_prefix + n not in probe_rel.columns]
+    def _k8_probe(self, table, pkidx, kcol, probe_rel, build_rel,
+                  value_cols):
+        """`_pk_probe`'s route for unsorted keys: one K8 pass probes
+        the table and fetches every value lut.  Build-side liveness folds
+        into the row lut by the build row's mask, as `DirectPKIndex.probe`
+        reads it, so the outputs equal the plain route's bit for bit; each
+        value comes at its column's stored width.  Narrower keys are widened
+        to int32 first."""
+        row, found, values = K8.pk_probe(
+            K8.live_lut(pkidx.lut, build_rel.mask), pkidx.base,
+            kcol.array.to(torch.int32).contiguous(),
+            probe_rel.mask.contiguous(),
+            _value_luts(table, pkidx, value_cols),
+            [table.columns[n].data.dtype for n in value_cols])
+        return row, found, kcol.array, dict(zip(value_cols, values))
 
-    def _kernel_probe_eligible(self, ctx, kcol, probe_rel, span,
-                               build_rel) -> bool:
-        """Host gate of the kernel probe: sorted probe keys (the storage
-        column, or a compaction of it that keeps its order), no NULL keys,
-        the kernel's size gate over the table's `span` slots, and not
-        verification's leg 3."""
-        if getattr(self, "_no_kernel_probe", False) or ctx.verify_mode:
-            return False
-        if not kcol.monotone or span >= 2**31:
-            return False
-        if kcol.valid is not None:
-            return False
-        if self.build_keys[0] not in build_rel.columns:
-            return False
-        return PPK.plan_monotone_gather(probe_rel.capacity, span)
+    def _value_fetches(self, ctx, probe_rel, build_rel) -> list[str]:
+        """Build columns the single-match gather takes from value luts: each
+        eligible column the join reads and outputs, without NULLs, that is
+        the table's stored column (a projection may compute a column under
+        a stored column's name, and a value lut holds the stored values)."""
+        stored = ctx.catalog.table(self._pk[0]).columns
+        out = []
+        for n in self._vlut_cols:
+            c = build_rel.columns.get(n)
+            if c is None or c.valid is not None or \
+                    self.build_prefix + n in probe_rel.columns:
+                continue
+            data = stored[n].data
+            if c.array.data_ptr() == data.data_ptr() and \
+                    c.array.dtype == data.dtype and \
+                    c.array.shape == data.shape:
+                out.append(n)
+        return out
+
+    def _probe_route(self, ctx, kcol, probe_rel, span, build_rel) -> str:
+        """Which body probes the table, from what the host can see: `k2`
+        for sorted keys (the storage column, or a compaction of it that
+        keeps its order) past K2's size gate, `k8` for any other keys of
+        at most 32 bits, and `gather`, the plain lut path, for
+        verification's leg 3, NULL keys, wider keys and tables of 2**31
+        slots or more."""
+        if ctx.verify_mode or kcol.valid is not None or span >= 2**31:
+            return "gather"
+        if kcol.monotone and not getattr(self, "_no_kernel_probe", False) \
+                and self.build_keys[0] in build_rel.columns \
+                and PPK.plan_monotone_gather(probe_rel.capacity, span):
+            return "k2"
+        return "k8" if kcol.array.dtype in _NARROW_INTS else "gather"
 
     def _execute(self, ctx):
         probe_rel = self.children[0].execute(ctx)
@@ -806,6 +847,10 @@ class HashJoin(PhysicalOperator):
         # (a PK lut's rows are global), the probe side's block joined where
         # it lies.  FULL's unmatched build rows and the reverse-PK flags
         # (probe-row positions) need the probe side whole too.
+        # value luts serve the build side's stored columns, seen before the
+        # build side is replicated (on a mesh, a copy)
+        fetch = self._value_fetches(ctx, probe_rel, build_rel) \
+            if use_pk else []
         build_rel = ctx.replicated(build_rel)
         if self.join_type == "full" or (
                 not use_pk and self._reverse_pk is not None
@@ -817,8 +862,7 @@ class HashJoin(PhysicalOperator):
                 m = ~found if self.join_type == "anti" else found
                 return probe_rel.with_mask(m & probe_rel.mask)
             build_row, found, kc, values = self._pk_probe(
-                ctx, probe_rel, build_rel,
-                self._value_fetches(probe_rel, build_rel))
+                ctx, probe_rel, build_rel, fetch)
             return self._gather_single(probe_rel, build_rel, build_row,
                                        found, kc, values)
         if self._reverse_pk is not None and not ctx.verify_mode:
@@ -962,23 +1006,19 @@ class HashJoin(PhysicalOperator):
 
     def _gather_single(self, probe_rel, build_rel, build_row, found,
                        kernel_keys, values):
-        safe = torch.clamp(build_row, 0, build_rel.capacity - 1)
+        safe = None
         left = self.join_type == "left"
         cols = dict(probe_rel.columns)
         for n, c in build_rel.columns.items():
             out_name = self.build_prefix + n
             if out_name in cols:
                 continue
-            v = None if c.valid is None else c.valid[safe]
-            if left:
-                # unmatched probe rows see NULL build values
-                v = found if v is None else (v & found)
             if kernel_keys is not None and c.valid is None and \
                     n == self.build_keys[0]:
                 # a matched row's build key IS the probe key: no gather
                 cols[out_name] = RelColumn(kernel_keys.to(c.array.dtype),
                                            c.dtype, c.dictionary, c.domain,
-                                           found if left else v)
+                                           found if left else None)
                 continue
             if n in values:
                 # the build VALUE, fetched in the probe's kernel pass over
@@ -988,6 +1028,12 @@ class HashJoin(PhysicalOperator):
                                            c.dtype, c.dictionary, c.domain,
                                            found if left else None)
                 continue
+            if safe is None:
+                safe = torch.clamp(build_row, 0, build_rel.capacity - 1)
+            v = None if c.valid is None else c.valid[safe]
+            if left:
+                # unmatched probe rows see NULL build values
+                v = found if v is None else (v & found)
             cols[out_name] = RelColumn(c.array[safe], c.dtype, c.dictionary,
                                        c.domain, v)
         if left:

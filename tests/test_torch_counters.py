@@ -14,8 +14,8 @@ from torch.profiler import ProfilerActivity, profile
 from duckdb_cubit_tpu_torch.api import Connection
 from duckdb_cubit_tpu_torch.exec import profiler as PROF
 from duckdb_cubit_tpu_torch.ops import (compact, cuda_build, dict_like,
-                                        fused_scan, gather_forms, probe,
-                                        q6_variants)
+                                        fused_scan, gather_forms, pk_probe,
+                                        probe, q6_variants)
 from duckdb_cubit_tpu_torch.tpch.load import load_catalog
 
 # the root attributes that PERF.md's layer table and the benchmark's readers
@@ -23,7 +23,8 @@ from duckdb_cubit_tpu_torch.tpch.load import load_catalog
 ROOT_NAMES = ("prepare_hits", "prepare_misses", "k1_launches", "k2_launches",
               "retries", "compacted", "dict_entries", "cubit_merges",
               "rows_written", "k6_launches", "pk_probe_rows",
-              "sort_probe_rows", "k7_launches", "host_waits")
+              "sort_probe_rows", "k7_launches", "host_waits",
+              "pk_probe_k8_rows", "k8_launches")
 # name -> (its kernel, its source's stem)
 KERNELS = {"k1": (fused_scan.KERNEL, "fused_scan_sum"),
            "k2": (probe.KERNEL, "monotone_gather"),
@@ -32,7 +33,8 @@ KERNELS = {"k1": (fused_scan.KERNEL, "fused_scan_sum"),
            "k5a": (gather_forms.TABLE_KERNEL, "table_gather"),
            "k5b": (gather_forms.LANE_KERNEL, "lane_gather"),
            "k6": (dict_like.KERNEL, "dict_like"),
-           "k7": (compact.KERNEL, "stream_compact")}
+           "k7": (compact.KERNEL, "stream_compact"),
+           "k8": (pk_probe.KERNEL, "pk_probe")}
 
 
 def test_profiler_imports_no_module_of_the_package():

@@ -113,9 +113,11 @@ def test_a_traced_query_probes_tables_and_sorts_nothing(port):
     assert len(roots) == 3 and not sorts
     assert all(r["pk_probe_rows"] > 0 and r["sort_probe_rows"] == 0
                for r in roots)
+    # every probe takes K8 (the plain body here, on the CPU)
+    assert all(r["pk_probe_k8_rows"] == r["pk_probe_rows"] for r in roots)
     # Q1.1 one probe, Q2.1 three, Q4.1 four
     assert len(probes) == 8
-    assert {p[5]["route"] for p in probes} == {"gather"}
+    assert {p[5]["route"] for p in probes} == {"k8"}
     assert {p[5]["slots"] for p in probes} >= {61_130, 300}
 
 
@@ -131,3 +133,39 @@ def test_a_sort_merge_join_is_counted(port):
         PROF.reset()
     assert sorts and root["sort_probe_rows"] == sum(s[5]["rows"]
                                                     for s in sorts) > 0
+
+
+@pytest.fixture(scope="module")
+def external(tables):
+    """A second connection to the same tables with every aggregate stage
+    split into passes (`force_external`), as SSB's nine multi-join queries
+    run at SF20 under the default `memory_limit`."""
+    conn = ssb.connect({}, tables, SF, "cpu")
+    conn.sql("SET force_external = true")
+    return conn
+
+
+@pytest.mark.parametrize("n", sorted(ssb.TEXTS))
+def test_a_query_in_passes_probes_through_k8_and_matches_the_reference(
+        external, db, n):
+    """Each query under `force_external`: the rows equal the suite's NumPy
+    reference, and each probe takes K8's route (its plain body here); the
+    nine multi-join queries run in passes, each pass probing every
+    dimension (Q1.x's plan stays in one pass)."""
+    ex = external.executor
+    passes = ex.external_passes
+    PROF.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = external.sql(ssb.TEXTS[n]).strings()
+        routes = [s[5]["route"] for s in PROF.spans()
+                  if s[0] == "db.join.pk_probe"]
+        (root,) = [s[5] for s in PROF.spans() if s[0] == "db.sql"]
+    finally:
+        PROF.reset()
+    assert check.compare(got, ssb.answer(n, db)) == (0, 0.0)
+    joins, least = {1: (1, 0), 2: (3, 2), 3: (3, 2), 4: (4, 2)}[n // 10]
+    assert ex.external_passes - passes >= least
+    assert routes == ["k8"] * len(routes)
+    assert len(routes) >= joins * max(least, 1)
+    assert root["pk_probe_k8_rows"] == root["pk_probe_rows"] > 0
