@@ -33,6 +33,11 @@ the card.
   The root carries `kind` and the deltas over the statement of every
   counter of the table below, of the executor's `EXECUTOR_FIGURES`, and
   `host_waits` (its `db.wait` spans).
+- A span opened with a CUDA `device` also times the card: a pair of CUDA
+  events recorded on the current stream as it opens and closes, which
+  `spans()` turns into attribute `device_ms`, the card's milliseconds from
+  the first to the last work the span enqueued (waits for that work's
+  inputs excluded, gaps inside it included).
 - At most `MAX_SPANS` are kept; `counters()["spans_dropped"]` counts the
   rest.
 - `py.gc`: each garbage collection while the recorder is on (one
@@ -115,7 +120,14 @@ _gc_hooked = False
 
 def spans() -> list[tuple]:
     """Every recorded span, `(name, start_ns, end_ns, parent, query_id,
-    attrs)`, in the order they opened (`end_ns` is None while open)."""
+    attrs)`, in the order they opened (`end_ns` is None while open).  A
+    device span's events are read here (waiting for them) into
+    `device_ms`."""
+    for s in _S.spans:
+        events = s[5] and s[5].pop("device_events", None)
+        if events:
+            events[1].synchronize()
+            s[5]["device_ms"] = events[0].elapsed_time(events[1])
     return [tuple(s) for s in _S.spans]
 
 
@@ -222,11 +234,34 @@ class _Span:
         return False
 
 
-def span(name: str):
+class _DeviceSpan(_Span):
+    """A span that times the card's work enqueued inside it (`spans()`
+    reads its events)."""
+    __slots__ = ("events",)
+
+    def __enter__(self):
+        super().__enter__()
+        if self.index >= 0:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.index >= 0:
+            self.events[1].record()
+            self.set(device_events=self.events)
+        return super().__exit__(exc_type, exc, tb)
+
+
+def span(name: str, device=None):
     """A span named `name` (starting with `db.` or `py.`) around a `with`
-    block; `.set(key=value)` adds attributes."""
+    block; `.set(key=value)` adds attributes.  With a CUDA `device` it
+    times the card too (`device_ms`)."""
     if not _enabled():
         return NULL
+    if device is not None and torch.device(device).type == "cuda":
+        return _DeviceSpan(name)
     return _Span(name)
 
 

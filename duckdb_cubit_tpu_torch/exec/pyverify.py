@@ -499,6 +499,15 @@ def _group(op, catalog):
                               for v in vals]
                     pick = (min if a.kind == "min" else max)(scaled)
                     nr[a.name] = (pick, "dec" if s else kinds[0], s)
+            elif a.kind == "quantile_cont":
+                if not vals:
+                    nr[a.name] = (None, "float", 0)
+                else:
+                    xs = sorted(_num(v) for v in vals)
+                    pos = (len(xs) - 1) * a.param
+                    lo, hi = math.floor(pos), math.ceil(pos)
+                    nr[a.name] = (xs[lo] + (pos - lo) * (xs[hi] - xs[lo]),
+                                  "float", 0)
             else:
                 raise Unsupported(f"aggregate {a.kind}")
         out.append(nr)

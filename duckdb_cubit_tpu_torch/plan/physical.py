@@ -54,6 +54,10 @@ from ..types import BOOL, DOUBLE, INT64, DataType, TypeId
 # probe rows that took a key-to-row table (`HashJoin._pk_probe`), and of
 # them those that took K8 (route `k8`)
 PROF.declare("pk_probe_rows", "pk_probe_k8_rows")
+# the rows a GroupAggregate grouped, by route (`_grouped`, `_reduced`), and
+# the rows a quantile sorted (`_quantile_column`)
+PROF.declare("group_rows_dense", "group_rows_fk", "group_rows_sort",
+             "median_rows")
 
 
 @dataclasses.dataclass
@@ -1313,8 +1317,10 @@ class BroadcastScalar(PhysicalOperator):
 @dataclasses.dataclass
 class Aggregate:
     kind: str                 # sum | count | min | max | avg | sum_double
+    #                           | quantile_cont
     expr: Expr | None         # None for count(*)
     name: str
+    param: float | None = None    # quantile_cont's fraction
 
 
 class GroupAggregate(PhysicalOperator):
@@ -1324,7 +1330,10 @@ class GroupAggregate(PhysicalOperator):
     + SUM kernel path.  With keys: FK-dense grouping when the one key is a
     foreign key with a direct PK index (group ids are the referenced rows),
     the dense mixed-radix path when every key is a dictionary / CHAR1 /
-    small-int domain, and sort-based grouping otherwise.
+    small-int domain, and sort-based grouping otherwise.  Every route hands
+    its group ids to the same aggregates; `quantile_cont` (the holistic
+    one: median and its kin) sorts the rows by (group, value) and reads
+    each group's middle rows (`_quantile_column`).
     """
 
     name = "group_aggregate"
@@ -1347,7 +1356,9 @@ class GroupAggregate(PhysicalOperator):
         return True
 
     def _self_signature(self):
-        aggs = ";".join(f"{a.kind}:{a.name}:{a.expr!r}" for a in self.aggregates)
+        aggs = ";".join(f"{a.kind}:{a.name}:{a.expr!r}"
+                        + ("" if a.param is None else f":{a.param!r}")
+                        for a in self.aggregates)
         kernel = getattr(self, "_kernel", None)
         return (f"group_aggregate[{self.keys};{self.carry};{aggs};"
                 f"fk={getattr(self, '_fk_dense', None)};"
@@ -1418,7 +1429,8 @@ class GroupAggregate(PhysicalOperator):
         of a block), and integer aggregates only (counts, exact split sums,
         MIN / MAX through the int64 encoding; a grouped AVG from its exact
         sum).  A DOUBLE sum, an ungrouped AVG (a float sum) and
-        SUM(DOUBLE) are order-dependent: those gather instead."""
+        SUM(DOUBLE) are order-dependent, and a quantile needs every value
+        of its group: those gather instead."""
         if self.keys:
             if self._fk_dense is not None and not ctx.verify_mode:
                 return False
@@ -1444,6 +1456,7 @@ class GroupAggregate(PhysicalOperator):
         if self.keys:
             sizes, codes = self._dense_slots(ctx, rel)
             gids, num_groups = groupby_ops.mixed_radix_codes(codes, sizes)
+            PROF.count("group_rows_dense", rel.capacity)
         else:
             gids = torch.zeros(rel.capacity, dtype=torch.int32, device=dev)
             num_groups = 1
@@ -1653,6 +1666,7 @@ class GroupAggregate(PhysicalOperator):
         """GROUP BY: FK-dense (not in verification's leg 3), dense
         mixed-radix or sort-based group ids, then `_aggregate`."""
         if self._fk_dense is not None and not ctx.verify_mode:
+            PROF.count("group_rows_fk", rel.capacity)
             pk_table, pk_col, num_groups = self._fk_dense
             pkidx = ctx.catalog.table(pk_table).pk_indexes[pk_col]
             slot, in_range = pkidx.slots(rel.columns[self.keys[0]].array)
@@ -1676,10 +1690,12 @@ class GroupAggregate(PhysicalOperator):
             return Relation(out_cols, out_mask, num_groups)
         dense_sizes, dense_codes = self._dense_slots(ctx, rel)
         if dense_sizes is not None:
+            PROF.count("group_rows_dense", rel.capacity)
             gids, num_groups = groupby_ops.mixed_radix_codes(dense_codes,
                                                              dense_sizes)
             valid, rep = rel.mask, None
         else:
+            PROF.count("group_rows_sort", rel.capacity)
             # NULL keys form one group: a leading null-flag key per nullable
             # column, with the value zeroed under NULL so garbage payloads
             # do not split the group (SQL GROUP BY NULL-equality)
@@ -1793,10 +1809,12 @@ class GroupAggregate(PhysicalOperator):
                         counts, srows, start, end):
         if agg.kind == "count" and agg.expr is None:
             return RelColumn(counts, INT64, None)
+        if agg.kind == "quantile_cont":
+            return self._quantile_column(agg, rel, evaluated, gids, valid,
+                                         num_groups)
         t = evaluated[agg.name]
         arr = _column(t.array, rel.capacity, valid.device)
         avalid = valid if t.valid is None else (valid & t.valid)
-        v_sorted = arr[srows]
         avalid_sorted = avalid[srows]
         if t.valid is not None or agg.kind == "count":
             nonnull = kernels.segment_count(avalid_sorted, start, end)
@@ -1808,19 +1826,11 @@ class GroupAggregate(PhysicalOperator):
         if agg.kind in ("sum", "avg") and t.dtype.id in (
                 TypeId.DECIMAL, TypeId.INT32, TypeId.INT64):
             hi, lo = kernels.segment_sum_exact(
-                v_sorted.to(torch.int64), avalid_sorted, start, end)
+                arr[srows].to(torch.int64), avalid_sorted, start, end)
             return self._exact_sum_column(agg, t, hi, lo, nonnull, out_valid)
         if agg.kind in ("sum", "avg", "sum_double"):
-            v = torch.where(avalid_sorted, v_sorted.to(torch.float64),
-                            torch.zeros((), dtype=torch.float64,
-                                        device=v_sorted.device))
-            if t.dtype.id == TypeId.DECIMAL:
-                v = v / (10.0 ** t.dtype.scale)
-            s = kernels._segment_sum_from_cumsum(torch.cumsum(v, 0), start,
-                                                 end)
-            if agg.kind == "avg":
-                s = s / torch.clamp(nonnull, min=1).to(torch.float64)
-            return RelColumn(s, DOUBLE, None, valid=out_valid)
+            return self._double_sum(agg, t, arr, avalid, gids, num_groups,
+                                    nonnull, out_valid)
         if agg.kind in ("min", "max"):
             # floats go through the monotone int64 encoding so the int64
             # min/max machinery is exact; empty groups get the int64 extremes
@@ -1865,6 +1875,9 @@ class GroupAggregate(PhysicalOperator):
     def _one_agg(self, agg, rel, evaluated, gids, valid, num_groups, counts):
         if agg.kind == "count" and agg.expr is None:
             return RelColumn(counts, INT64, None)
+        if agg.kind == "quantile_cont":
+            return self._quantile_column(agg, rel, evaluated, gids, valid,
+                                         num_groups)
         t = evaluated[agg.name]
         arr = _column(t.array, rel.capacity, valid.device)
         # NULL semantics: aggregates skip NULL inputs (count(expr) counts
@@ -1885,18 +1898,8 @@ class GroupAggregate(PhysicalOperator):
                 small_limit=self._small)
             return self._exact_sum_column(agg, t, hi, lo, nonnull, out_valid)
         if agg.kind in ("sum", "avg", "sum_double"):
-            v = torch.where(avalid, arr.to(torch.float64),
-                            torch.zeros((), dtype=torch.float64,
-                                        device=arr.device))
-            if t.dtype.id == TypeId.DECIMAL:
-                v = v / (10.0 ** t.dtype.scale)
-            safe = torch.where(avalid, gids, torch.zeros_like(gids))
-            s = torch.zeros(num_groups, dtype=torch.float64,
-                            device=arr.device).index_add_(
-                0, safe.to(torch.int64), v)
-            if agg.kind == "avg":
-                s = s / torch.clamp(nonnull, min=1).to(torch.float64)
-            return RelColumn(s, DOUBLE, None, valid=out_valid)
+            return self._double_sum(agg, t, arr, avalid, gids, num_groups,
+                                    nonnull, out_valid)
         if agg.kind in ("min", "max"):
             enc = kernels.monotone_i64(arr)
             if agg.kind == "min":
@@ -1908,6 +1911,65 @@ class GroupAggregate(PhysicalOperator):
             r = kernels.monotone_i64_inverse(r, arr.is_floating_point())
             return RelColumn(r, t.dtype, t.dictionary, valid=out_valid)
         raise ValueError(agg.kind)
+
+    @staticmethod
+    def _double_sum(agg, t, arr, avalid, gids, num_groups, nonnull,
+                    out_valid) -> RelColumn:
+        """A grouped DOUBLE sum (or its average): each group's own rows
+        added into its slot.  (Differences of one running sum over every
+        row would carry the rounding of the column's whole total into each
+        group: a group of one small value far down a 1e8-row column loses
+        most of its digits.)"""
+        v = torch.where(avalid, arr.to(torch.float64),
+                        torch.zeros((), dtype=torch.float64,
+                                    device=arr.device))
+        if t.dtype.id == TypeId.DECIMAL:
+            v = v / (10.0 ** t.dtype.scale)
+        slot = torch.where(avalid, gids, torch.zeros_like(gids))
+        s = torch.zeros(num_groups, dtype=torch.float64,
+                        device=arr.device).index_add_(
+            0, slot.to(torch.int64), v)
+        if agg.kind == "avg":
+            s = s / torch.clamp(nonnull, min=1).to(torch.float64)
+        return RelColumn(s, DOUBLE, None, valid=out_valid)
+
+    def _quantile_column(self, agg, rel, evaluated, gids, valid,
+                         num_groups) -> RelColumn:
+        """quantile_cont(x, p) of each group (median: p = 0.5), DuckDB's
+        continuous rule: over a group's n non-NULL values in order, the
+        position (n - 1) p, interpolated linearly between the values at its
+        floor and its ceiling (an even count's median is the mean of the
+        two middle values).  The rows are sorted by value, then stably by
+        group, NULLs and masked rows past every group; each group's rows
+        are then one run, found by a binary search of the group ids.  NULL
+        where a group has no value.  The result is a DOUBLE."""
+        t = evaluated[agg.name]
+        if t.dtype.id not in (TypeId.INT32, TypeId.INT64, TypeId.DECIMAL,
+                              TypeId.DOUBLE):
+            raise ValueError(f"quantile_cont over {t.dtype.id.name}: a "
+                             "number is needed")
+        dev = valid.device
+        n = rel.capacity
+        PROF.count("median_rows", n)
+        with PROF.span("db.agg.median", dev) as sp:
+            sp.set(rows=n, groups=num_groups)
+            v = _column(t.array, n, dev).to(torch.float64)
+            if t.dtype.id == TypeId.DECIMAL:
+                v = v / (10.0 ** t.dtype.scale)
+            avalid = valid if t.valid is None else (valid & t.valid)
+            _, by_value = torch.sort(v, stable=True)
+            gid_sorted, by_group = kernels.sort_by_group(gids[by_value],
+                                                         avalid[by_value])
+            v_sorted = v[by_value[by_group]]
+            start, end = kernels.segment_bounds(gid_sorted, num_groups)
+            count = end - start
+            pos = torch.clamp(count - 1, min=0).to(torch.float64) * agg.param
+            lo, hi = torch.floor(pos), torch.ceil(pos)
+            last = max(n - 1, 0)
+            v_lo = v_sorted[torch.clamp(start + lo.to(torch.int64), max=last)]
+            v_hi = v_sorted[torch.clamp(start + hi.to(torch.int64), max=last)]
+            out = v_lo + (pos - lo) * (v_hi - v_lo)
+        return RelColumn(out, DOUBLE, None, valid=count > 0)
 
     @staticmethod
     def _exact_sum_column(agg, t, hi, lo, nonnull, out_valid) -> RelColumn:
@@ -1930,6 +1992,12 @@ class GroupAggregate(PhysicalOperator):
             if agg.kind == "count" and agg.expr is None:
                 out_cols[agg.name] = RelColumn(
                     rel.mask.to(torch.int64).sum().reshape(1), INT64, None)
+                continue
+            if agg.kind == "quantile_cont":
+                out_cols[agg.name] = self._quantile_column(
+                    agg, rel, evaluated,
+                    torch.zeros(rel.capacity, dtype=torch.int32,
+                                device=device), rel.mask, 1)
                 continue
             t = evaluated[agg.name]
             amask = rel.mask if t.valid is None else (rel.mask & t.valid)

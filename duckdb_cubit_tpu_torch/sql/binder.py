@@ -44,6 +44,7 @@ from ..ops import expressions as E
 from ..plan import physical as P
 from ..storage.table import pad_count
 from ..types import DataType, TypeId, date_to_days
+from . import aggregates as port_aggs
 from . import ast as A
 from .parser import parse
 
@@ -241,6 +242,10 @@ def _has_aggregate(node) -> bool:
         return False
     if isinstance(node, A.InExpr):
         return _has_aggregate(node.expr)
+    # port-only {
+    if isinstance(node, A.FuncCall) and node.name in port_aggs.NAMES:
+        return True
+    # port-only }
     if isinstance(node, A.FuncCall) and (node.name in _AGG_FUNCS
                                          or node.name in _STAT_AGGS):
         return True
@@ -1405,6 +1410,10 @@ class Binder:
         relation: aggregate calls become Aggregate specs + output column
         refs; plain columns must be group keys, select aliases (HAVING
         referencing an aggregate alias), or lifted scalars."""
+        # port-only {
+        if isinstance(node, A.FuncCall) and node.name in port_aggs.NAMES:
+            return port_aggs.bind(self, node, scope, aggs)
+        # port-only }
         if isinstance(node, A.FuncCall) and node.name in _AGG_FUNCS:
             if node.distinct:
                 raise BindError("DISTINCT aggregate in unsupported position")
@@ -1613,6 +1622,13 @@ class Binder:
         if isinstance(node, A.IntervalLit):
             raise BindError("interval outside date arithmetic")
         if isinstance(node, A.FuncCall):
+            # port-only {
+            if node.name in port_aggs.NAMES:
+                if agg_hook is not None:
+                    return agg_hook(node)
+                raise BindError(f"aggregate {node.name}() outside "
+                                f"SELECT/HAVING")
+            # port-only }
             if node.name in _AGG_FUNCS or node.name in _STAT_AGGS:
                 if agg_hook is not None:
                     return agg_hook(node)

@@ -605,6 +605,14 @@ class Parser:
                 length = self.parse_expr()
             self.expect("op", ")")
             return A.SubstringExpr(e, start, length)
+        # port-only {
+        if self.at_kw("count", "sum", "avg", "min", "max") and not (
+                self.toks[self.i + 1].kind == "op"
+                and self.toks[self.i + 1].value == "("):
+            # an aggregate's name that is not called names a column (an
+            # outer query reading a select list's `count(*) AS count`)
+            return A.ColumnRef(None, self.next().value)
+        # port-only }
         if self.at_kw("count", "sum", "avg", "min", "max"):
             fname = self.next().value
             self.expect("op", "(")

@@ -108,14 +108,21 @@ PROBE_ROWS = 1 << 20
 SAMPLE_ROWS = 1 << 16
 
 
-def encode_strings(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Sorted-dictionary encode a |S numpy array -> (int32 codes, dictionary).
+def encode_strings(values: np.ndarray, device=None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Sorted-dictionary encode a |S numpy array -> (int32 codes, dictionary),
+    as `np.unique(values, return_inverse=True)` gives them.
 
-    A long column with few distinct values in a strided sample is probed
-    against the sample's sorted distinct values (a binary search a value,
-    each hit checked): when every value is among them, they are the
-    column's dictionary and the sort of the whole column is skipped."""
+    A long column is ranked by its bytes as integers (`_rank_bytes`)
+    instead of by numpy's sort of strings: on the card where `device` is
+    one.  On the host, one with few distinct values in a strided sample is
+    first probed against the sample's sorted distinct values (a binary
+    search a value, each hit checked): when every value is among them,
+    they are the column's dictionary and no sort is needed."""
     n = len(values)
+    if n >= PROBE_ROWS and device is not None and \
+            torch.device(device).type == "cuda":
+        return _rank_bytes(values, device)
     if n >= PROBE_ROWS:
         sample = np.unique(values[::n // SAMPLE_ROWS])
         if len(sample) * 64 <= SAMPLE_ROWS:
@@ -123,8 +130,41 @@ def encode_strings(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
             np.minimum(codes, len(sample) - 1, out=codes)
             if (sample[codes] == values).all():
                 return codes.astype(np.int32), sample
+        return _rank_bytes(values)
     dictionary, codes = np.unique(values, return_inverse=True)
     return codes.astype(np.int32), dictionary
+
+
+def _rank_bytes(values: np.ndarray, device=None
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """`np.unique(values, return_inverse=True)` of a non-empty |S column by
+    integer sorts.  numpy stores a |S value NUL-padded to the column's
+    width and orders values as their padded bytes compare, unsigned, so a
+    value's bytes read as one big-endian integer order as the strings do.
+    They are read a few at a time: each step appends the next bytes below
+    the dense rank the earlier bytes gave, as many as keep the key under
+    2**63, sorts the keys and ranks them again.  The last ranks are the
+    codes; a row of each distinct value, in order, gives the dictionary."""
+    n, width = len(values), values.dtype.itemsize
+    raw = torch.from_numpy(np.ascontiguousarray(values).view(np.uint8)
+                           .reshape(n, width)).to(device or "cpu")
+    rank, distinct, pos = None, 1, 0
+    while pos < width:
+        take = min(width - pos, (63 - distinct.bit_length()) // 8)
+        key = torch.zeros(n, dtype=torch.int64, device=raw.device) \
+            if rank is None else rank
+        for i in range(pos, pos + take):
+            key = (key << 8) | raw[:, i].to(torch.int64)
+        pos += take
+        ordered, order = torch.sort(key)
+        first = torch.ones(n, dtype=torch.bool, device=raw.device)
+        first[1:] = ordered[1:] != ordered[:-1]
+        dense = torch.cumsum(first, 0) - 1
+        rank = torch.empty_like(dense)
+        rank[order] = dense
+        distinct = int(dense[-1]) + 1
+    rows = order[first].cpu().numpy()
+    return rank.to(torch.int32).cpu().numpy(), values[rows]
 
 
 @dataclasses.dataclass
@@ -239,7 +279,7 @@ def from_numpy(
         if values.dtype.kind in ("S", "U") or values.dtype == object:
             if values.dtype.kind != "S":
                 values = np.asarray(values, dtype="S")
-            codes, dictionary = encode_strings(values)
+            codes, dictionary = encode_strings(values, device)
             dev_np, dtype = codes, VARCHAR
         elif values.dtype == np.uint8:
             dev_np, dtype = values, CHAR1
